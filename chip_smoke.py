@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (ocr_system_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the checkout, holds each one against its plain
+PyTorch version at the shapes the serving path gives it (8 pages at the 960
+bucket), then runs the serving path itself with seeded random weights at
+full model width: 160 word quads per page (every width bucket, axis-aligned
+and rotated) through ``Recognizer.recognize_pages``,
+one 8-page wave through ``TorchOCREngine.process_pages``, two waves through
+``PageScheduler.process``. Each kernel wrapper counts its launches; the
+counts are zeroed before each path phase and must be positive after it
+(on the CPU the wrappers run their plain versions and count nothing).
+
+Each phase prints one JSON line; then one line with every kernel's numbers,
+then the card's ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
+then nonzero and no result line is printed. Without a CUDA device, or
+outside a checkout of the repository, it exits 1 at once.
+
+The phase functions take an engine and pages, so the CPU tests can run
+them at a tiny size.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PKG = "ocr_system_tpu_torch"
+SEED = 1234
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def reset_counts() -> None:
+    from ocr_system_tpu_torch.kernels import crop, enhance
+
+    enhance.LAUNCHES.reset()
+    crop.LAUNCHES.reset()
+
+
+def counts() -> dict[str, int]:
+    from ocr_system_tpu_torch.kernels import crop, enhance
+
+    return {"enhance": enhance.LAUNCHES.value, "crop": crop.LAUNCHES.value}
+
+
+def check_outputs(outs, pages) -> int:
+    """Every page succeeded, has its size, and every layout polygon is 8
+    finite numbers on the page. Returns the word-box count."""
+    words = 0
+    for out, page in zip(outs, pages):
+        if not out.success:
+            raise AssertionError(f"page {page.page_number} failed: {out.error}")
+        if (out.page_width, out.page_height) != (page.width, page.height):
+            raise AssertionError(f"page {page.page_number}: wrong page size")
+        for box in out.layout_boxes:
+            poly = np.asarray(box["polygon"], np.float64)
+            if poly.shape != (8,) or not np.isfinite(poly).all():
+                raise AssertionError(f"malformed polygon {box['polygon']}")
+            if (poly[0::2].min() < -1 or poly[0::2].max() > page.width + 1
+                    or poly[1::2].min() < -1 or poly[1::2].max() > page.height + 1):
+                raise AssertionError(f"polygon off the page: {box['polygon']}")
+        words += sum(b["type"] == "word" for b in out.layout_boxes)
+    return words
+
+
+def served_quads(rng, side: int, per_page: int, buckets, h_rec: int) -> np.ndarray:
+    """per_page word quads on a side x side canvas, in rows of words whose
+    aspect ratios send them to each width bucket in turn (rec widths stay
+    inside their bucket with a 10% margin); every 7th quad is rotated."""
+    u = side / 960.0
+    h = 16 * u
+    bs = sorted(buckets)
+    lows = [0.5 * bs[0]] + bs[:-1]
+    qs: list = []
+    k = 0
+    y = 20 * u
+    while len(qs) < per_page and y + 1.3 * h < side:
+        x = 15 * u
+        while len(qs) < per_page:
+            b = k % len(bs)
+            span = bs[b] - lows[b]
+            w = rng.uniform(lows[b] + 0.1 * span, bs[b] - 0.1 * span) / h_rec * h
+            if x + w + 0.3 * h > side - 5 * u:
+                break
+            if len(qs) % 7 == 3:  # rotated quad: the general gather path
+                qs.append([[x, y], [x + w, y + 0.3 * h],
+                           [x + w - 0.3 * h, y + 1.3 * h], [x - 0.3 * h, y + h]])
+            else:
+                qs.append([[x, y], [x + w, y], [x + w, y + h], [x, y + h]])
+            x += w + 12 * u
+            k += 1
+        y += 22 * u
+    if len(qs) < per_page:
+        raise AssertionError(f"only {len(qs)} of {per_page} quads fit the canvas")
+    return np.asarray(qs, np.float32)
+
+
+def phase_recognizer(recognizer, n_pages: int, side: int, per_page: int) -> dict:
+    """A served load through the public ``Recognizer.recognize_pages``:
+    per_page word quads on each page, axis-aligned and rotated, in every
+    width bucket. The first call sets up cuDNN and cuBLAS for the shapes;
+    the second is timed."""
+    from ocr_system_tpu_torch.engine.recognizer import _first_ge
+    from ocr_system_tpu_torch.ops.sampling import axis_aligned_mask
+    from ocr_system_tpu_torch.utils.smoke import draw_page
+
+    s = recognizer.settings
+    rng = np.random.default_rng(SEED + 1)
+    pages = [draw_page(rng, side, side) for _ in range(n_pages)]
+    quads = [served_quads(rng, side, per_page, s.rec_width_buckets, s.rec_image_height)
+             for _ in range(n_pages)]
+    flat = np.concatenate(quads)
+    aspect = (np.linalg.norm(flat[:, 1] - flat[:, 0], axis=1)
+              / np.linalg.norm(flat[:, 3] - flat[:, 0], axis=1))
+    buckets = sorted(s.rec_width_buckets)
+    hit = [_first_ge(buckets, w) for w in np.clip(aspect * s.rec_image_height, 16, None)]
+    by_bucket = {b: hit.count(b) for b in buckets}
+    rotated = int((~axis_aligned_mask(flat)).sum())
+    if min(by_bucket.values()) == 0 or rotated == 0 or rotated == len(flat):
+        raise AssertionError(f"the quads miss a bucket or a path: {by_bucket}, {rotated} rotated")
+    t = time.perf_counter()
+    recognizer.recognize_pages(pages, quads)
+    first_s = time.perf_counter() - t
+    reset_counts()
+    t = time.perf_counter()
+    res = recognizer.recognize_pages(pages, quads)
+    sec = time.perf_counter() - t
+    launched = counts()
+    if [len(r) for r in res] != [len(q) for q in quads]:
+        raise AssertionError("recognize_pages returned the wrong result count")
+    if not all(isinstance(r.text, str) and math.isfinite(r.confidence)
+               for row in res for r in row):
+        raise AssertionError("non-finite recognition confidence")
+    if recognizer.device.type == "cuda" and launched["crop"] < len(buckets):
+        raise AssertionError(f"the crop kernel missed a width bucket: {launched}")
+    return {"phase": "recognizer", "pages": n_pages, "quads": len(flat),
+            "quads_by_bucket": by_bucket, "rotated": rotated, "launches": launched,
+            "first_wall_s": first_s, "wall_s": sec}
+
+
+def phase_engine(engine, pages, rotated: int | None) -> dict:
+    """One wave through ``TorchOCREngine.process_pages``."""
+    reset_counts()
+    t = time.perf_counter()
+    outs = engine.process_pages(pages)
+    sec = time.perf_counter() - t
+    launched = counts()
+    words = check_outputs(outs, pages)
+    for k, (out, page) in enumerate(zip(outs, pages)):
+        # the overlay image is the deskewed page the boxes were found on
+        turned = not np.array_equal(out.processed_image, page.pixels)
+        if turned != (k == rotated):
+            raise AssertionError(f"page {k + 1}: deskew {'ran' if turned else 'did not run'}")
+    if engine.detector.device.type == "cuda" and (
+            launched["enhance"] < 1 + (rotated is not None) or launched["crop"] <= 0):
+        raise AssertionError(f"kernels not on the path: {launched}")
+    return {"phase": "engine", "pages": len(pages), "words": words,
+            "launches": launched, "stage_ms": engine.stage_ms, "wall_s": sec,
+            "pages_per_s": len(pages) / sec}
+
+
+def phase_scheduler(engine, pages) -> dict:
+    """Two waves through ``PageScheduler.process``: no retries, no failures."""
+    from ocr_system_tpu_torch.engine.scheduler import PageScheduler
+
+    sched = PageScheduler(engine, engine.settings)
+    reset_counts()
+    t = time.perf_counter()
+    outs = sched.process(pages)
+    sec = time.perf_counter() - t
+    launched = counts()
+    st = sched.stats
+    if st.retried_pages or st.failed_pages:
+        raise AssertionError(f"scheduler fell back: {st}")
+    words = check_outputs(outs, pages)
+    if engine.detector.device.type == "cuda" and (
+            launched["enhance"] < st.waves or launched["crop"] <= 0):
+        raise AssertionError(f"kernels not on the path: {launched}")
+    return {"phase": "scheduler", "pages": len(pages), "waves": st.waves,
+            "retried_pages": st.retried_pages, "failed_pages": st.failed_pages,
+            "words": words, "launches": launched, "stage_ms": sched.timer.as_ms(),
+            "wall_s": sec, "pages_per_s": len(pages) / sec}
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() over iters warm launches (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_enhance(dev) -> dict:
+    """The enhance kernel at the det path's shape (8 gray 960 x 960 pages ->
+    (8, 3, 960, 960)), plus its RGB (JAX-signature) form at (8, 960, 960, 3)."""
+    import torch
+
+    from ocr_system_tpu_torch.kernels import enhance
+
+    rng = np.random.default_rng(SEED + 2)
+    gray = torch.from_numpy(rng.random((8, 960, 960), np.float32)).to(dev)
+    rgb = torch.from_numpy(rng.random((8, 960, 960, 3), np.float32)).to(dev)
+    err_gray = (enhance.enhance_gray(gray) - enhance.enhance_gray_plain(gray)).abs().max().item()
+    err_rgb = (enhance.fused_enhance(rgb) - enhance.fused_enhance_plain(rgb)).abs().max().item()
+    torch.cuda.synchronize()
+    if not (err_gray <= 1e-5 and err_rgb <= 1e-5):
+        raise AssertionError(f"enhance disagrees: gray {err_gray}, rgb {err_rgb}")
+    ms = cuda_ms(lambda: enhance.enhance_gray(gray))
+    plain_ms = cuda_ms(lambda: enhance.enhance_gray_plain(gray))
+    b, h, w = gray.shape
+    nbytes = gray.numel() * 4 + b * 3 * h * w * 4  # gray in, 3 planes out
+    # contrast 3, column and row blur 9 + 9, unsharp 4, 3 x normalise 2
+    flops = b * h * w * (3 + 9 + 9 + 4 + 6)
+    return {"name": "enhance", "max_abs_err": max(err_gray, err_rgb),
+            "max_abs_err_rgb": err_rgb, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "shape": [b, h, w],
+            **bound(nbytes, flops)}
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def crop_case(rng, pages_n: int, side: int, n: int, width: int):
+    """Boxes as the recognizer makes them, plus the hard cases: off-page,
+    unaligned widths, w_valid < W, and boxes taller than 112 px."""
+    x0 = rng.uniform(-20, side - 100, (pages_n, n))
+    y0 = rng.uniform(-10, side - 60, (pages_n, n))
+    h = rng.uniform(12, 60, (pages_n, n))
+    h[:, ::8] = rng.uniform(113, 300, (pages_n, len(range(0, n, 8))))
+    wv = rng.integers(16, width + 1, (pages_n, n)).astype(np.int32)
+    w = h * width / 48.0  # quads extended to the bucket, as the recognizer does
+    aabbs = np.stack([x0, y0, x0 + w, y0 + h], -1).astype(np.float32)
+    return aabbs, wv
+
+
+def kernel_crop(dev) -> dict:
+    """The crop kernel at the rec path's shape: 8 canvases of 960 x 960 with
+    160 boxes each, at every rec width bucket (320, 640, 1280)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ocr_system_tpu_torch.kernels import crop
+
+    rng = np.random.default_rng(SEED + 3)
+    pages = torch.from_numpy(rng.integers(0, 256, (8, 960, 960), np.uint8)).to(dev)
+    rows = []
+    for width in (320, 640, 1280):
+        aabbs_np, wv_np = crop_case(rng, 8, 960, 160, width)
+        aabbs = torch.from_numpy(aabbs_np).to(dev)
+        wv = torch.from_numpy(wv_np).to(dev)
+        shape = (48, width)
+        err = (crop.crop_boxes(pages, aabbs, wv, shape)
+               - crop.crop_boxes_plain(pages, aabbs, wv, shape)).abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"crop disagrees at W={width}: {err}")
+        ms = cuda_ms(lambda: crop.crop_boxes(pages, aabbs, wv, shape))
+        plain_ms = cuda_ms(lambda: crop.crop_boxes_plain(pages, aabbs, wv, shape), 5)
+        # yardstick only: grid_sample's bilinear with border padding on
+        # the same sample points (no w_valid mask)
+        p_f = pages[:, None].float() / 255.0
+        steps_h = torch.arange(48, device=dev, dtype=torch.float32) / 47.0
+        steps_w = torch.arange(width, device=dev, dtype=torch.float32) / (width - 1)
+        bx = aabbs.view(8, 160, 1, 1, 4)
+        gx = bx[..., 0] + (bx[..., 2] - bx[..., 0]) * steps_w.view(1, 1, 1, -1)
+        gy = bx[..., 1] + (bx[..., 3] - bx[..., 1]) * steps_h.view(1, 1, -1, 1)
+        grid = torch.stack([
+            (gx * 2 / 959 - 1).expand(-1, -1, 48, -1),
+            (gy * 2 / 959 - 1).expand(-1, -1, -1, width),
+        ], -1).reshape(8, 160 * 48, width, 2)
+        library_ms = cuda_ms(lambda: F.grid_sample(
+            p_f, grid, mode="bilinear", padding_mode="border", align_corners=True))
+        n_out = 8 * 160 * 48 * width
+        nbytes = pages.numel() + aabbs.numel() * 4 + wv.numel() * 4 + n_out * 4
+        rows.append({"width": width, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     **bound(nbytes, n_out * 14)})
+    # the kernels line reports the W = 1280 case (the largest); every
+    # width is printed in the kernels phase
+    return {"name": "crop", **rows[-1], "by_width": rows}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, PKG)):
+        print(f"chip_smoke: {PKG}/ not found beside this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    t_all = time.perf_counter()
+    dev = torch.device("cuda:0")
+
+    # ---- phase 0: device and build ----
+    t = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    from ocr_system_tpu_torch.kernels import _build
+
+    so = _build.build()
+    _build.library()
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "library": os.path.relpath(so, REPO),
+          "build_s": time.perf_counter() - t, "ptxas": ptxas})
+
+    # ---- phase 1: kernels against their plain versions ----
+    t = time.perf_counter()
+    k_enh = kernel_enhance(dev)
+    k_crop = kernel_crop(dev)
+    emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop,
+          "elapsed_s": time.perf_counter() - t})
+
+    from ocr_system_tpu_torch.utils.smoke import build_engine, letter_pages
+
+    engine = build_engine(dev)  # seeded random weights, full width
+
+    # ---- phase 2: recognizer on explicit quads ----
+    t = time.perf_counter()
+    rec = phase_recognizer(engine.recognizer, 8, 960, per_page=160)
+    emit({**rec, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 3: the engine, one wave of 8 letter pages (the main path) ----
+    t = time.perf_counter()
+    pages = letter_pages(8, 960, rotated=5, seed=SEED)
+    engine.process_pages(pages[:2])  # first call: cuDNN/cuBLAS set-up
+    eng = phase_engine(engine, pages, rotated=5)
+    emit({**eng, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 4: two waves through the scheduler ----
+    t = time.perf_counter()
+    sch = phase_scheduler(engine, letter_pages(12, 960, rotated=None, seed=SEED + 4))
+    emit({**sch, "elapsed_s": time.perf_counter() - t})
+
+    sources = {
+        "enhance": "ocr_system_tpu/kernels/preprocess_pallas.py:117",
+        "crop": "ocr_system_tpu/kernels/crop_pallas.py:111",
+    }
+    kernels = []
+    for k in (k_enh, k_crop):
+        name = k["name"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/kernels.cu",
+            "replaces": sources[name],
+            "launches": eng["launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        })
+    emit({"kernels": kernels, "total_s": time.perf_counter() - t_all})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

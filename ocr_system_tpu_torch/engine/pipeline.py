@@ -1,0 +1,240 @@
+"""The OCR engine: page pixels -> markdown + layout boxes (port of the
+neural engine of ocr_system_tpu/engine/pipeline.py).
+
+Same service contract as the JAX package: ``OCROutput`` /
+``DocumentOCRResult``, and layout boxes in Azure's shape
+``{"type", "content", "confidence", "polygon", "page_number"}``.
+
+This slice of the port runs the neural engine with Latin recognition only:
+script routing and its two rescue passes, glue split, selection marks and
+handwriting are later slices, and ``TorchOCREngine`` refuses settings that
+turn them on (``SLICE_SETTINGS`` lists the values it needs).
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ocr_system_tpu_torch.core.config import Settings, get_settings
+from ocr_system_tpu_torch.engine import reading_order
+from ocr_system_tpu_torch.engine.detector import Detector
+from ocr_system_tpu_torch.engine.preprocess import PageImage, load_document
+from ocr_system_tpu_torch.engine.recognizer import Recognizer
+from ocr_system_tpu_torch.extract.tables import find_tables
+
+# serving defaults that this slice of the port does not run yet, and the
+# values it needs instead
+SLICE_SETTINGS = {
+    "ocr_engine": "jax",
+    "rec_charset": "latin",
+    "enable_selection_marks": False,
+    "enable_handwriting_detection": False,
+    "det_glue_split": False,
+    "det_split_column_gaps": False,
+    "rec_tighten_y": False,
+}
+
+
+@dataclass
+class OCROutput:
+    """Per-page OCR result."""
+
+    success: bool
+    markdown: str = ""
+    html: str = ""
+    json_content: dict = field(default_factory=dict)
+    layout_boxes: list[dict] = field(default_factory=list)
+    page_number: int = 1
+    page_width: float = 0.0
+    page_height: float = 0.0
+    processing_time_ms: float = 0.0
+    error: str | None = None
+    processed_image: np.ndarray | None = None  # (H, W, 3) uint8 for overlay UI
+
+
+@dataclass
+class DocumentOCRResult:
+    """Whole-document result."""
+
+    success: bool
+    pages: list[OCROutput] = field(default_factory=list)
+    combined_markdown: str = ""
+    combined_html: str = ""
+    total_pages: int = 0
+    processing_time_ms: float = 0.0
+    error: str | None = None
+    stage_times_ms: dict = field(default_factory=dict)
+
+    @property
+    def combined_layout_boxes(self) -> list[dict]:
+        return [b for p in self.pages for b in p.layout_boxes]
+
+
+class TorchOCREngine:
+    """The neural det+rec engine on the card (the JAX package's
+    ``JaxOCREngine``)."""
+
+    name = "torch"
+
+    # pages letterbox to detection canvases at scale s <= 1; recognition
+    # crops from those canvases only above this scale (below it the canvas
+    # has less resolution than the page)
+    REC_CANVAS_MIN_SCALE = 0.98
+
+    def __init__(self, settings: Settings | None = None,
+                 detector: Detector | None = None,
+                 recognizer: Recognizer | None = None,
+                 device: str | torch.device | None = None):
+        self.settings = settings or get_settings()
+        wrong = {
+            k: getattr(self.settings, k) for k, v in SLICE_SETTINGS.items()
+            if getattr(self.settings, k) != v
+        }
+        if wrong:
+            raise ValueError(
+                f"not ported yet: {wrong}; the torch engine needs {SLICE_SETTINGS}"
+            )
+        self.detector = detector or Detector(self.settings, device=device)
+        self.recognizer = recognizer or Recognizer(self.settings, device=device)
+        # wall ms of the last det_stage ("det") and rec_stage ("rec",
+        # "finish") calls
+        self.stage_ms: dict[str, float] = {}
+
+    def process_page(self, page: PageImage) -> OCROutput:
+        return self.process_pages([page])[0]
+
+    def process_pages(self, pages: list[PageImage]) -> list[OCROutput]:
+        """Detection on the whole page batch at once, recognition of every
+        page's crops together."""
+        t0 = time.perf_counter()
+        dets = self.det_stage(pages)
+        return self.rec_stage(pages, dets, t0)
+
+    # split stages so the scheduler can pipeline waves: det of wave N+1
+    # runs in a worker thread while rec of wave N runs
+    def det_stage(self, pages: list[PageImage]):
+        t = time.perf_counter()
+        dets = self.detector.detect_batch([p.pixels for p in pages])
+        self.stage_ms["det"] = (time.perf_counter() - t) * 1000.0
+        return dets
+
+    def rec_stage(self, pages: list[PageImage], dets, t0: float | None = None) -> list[OCROutput]:
+        t0 = time.perf_counter() if t0 is None else t0
+        quads_list = [
+            np.array([b.quad for b in d.boxes], np.float32).reshape(-1, 4, 2)
+            for d in dets
+        ]
+        t = time.perf_counter()
+        recs_list = self._recognize(dets, quads_list)
+        t_fin = time.perf_counter()
+        self.stage_ms["rec"] = (t_fin - t) * 1000.0
+        if len(pages) <= 1:
+            out = [
+                self._finish_page(p, d, r, t0)
+                for p, d, r in zip(pages, dets, recs_list)
+            ]
+        else:
+            # page finishing is host work; finish pages in parallel as the
+            # reference does
+            with ThreadPoolExecutor(max_workers=min(8, len(pages))) as ex:
+                out = list(ex.map(
+                    lambda pdr: self._finish_page(*pdr, t0),
+                    zip(pages, dets, recs_list),
+                ))
+        self.stage_ms["finish"] = (time.perf_counter() - t_fin) * 1000.0
+        return out
+
+    def _recognize(self, dets, quads_list):
+        """Crop from the det stage's device canvases when they carry full
+        page resolution (one page upload per wave); host pages otherwise."""
+        reusable = all(
+            d.canvas_stack is not None
+            and d.canvas_scale >= self.REC_CANVAS_MIN_SCALE
+            for d in dets
+        ) and len({id(d.canvas_stack) for d in dets}) == 1
+        if not reusable or not dets:
+            return self.recognizer.recognize_pages([d.page for d in dets], quads_list)
+        stack = dets[0].canvas_stack
+        row_quads: list[np.ndarray] = [np.zeros((0, 4, 2), np.float32)] * stack.shape[0]
+        for d, q in zip(dets, quads_list):
+            row_quads[d.canvas_row] = (q * d.canvas_scale).astype(np.float32)
+        row_recs = self.recognizer.recognize_on_device_stack(stack, row_quads)
+        return [row_recs[d.canvas_row] for d in dets]
+
+    def _finish_page(self, page: PageImage, det, recs, t0: float) -> OCROutput:
+        """Reading order, word/line/table layout boxes, markdown and html."""
+        # the overlay image is the DESKEWED page the boxes were found on
+        pixels = det.page
+        blocks = []
+        word_boxes: list[dict] = []
+        for b, r in zip(det.boxes, recs):
+            conf = float(min(b.score, r.confidence) if r.text else b.score * 0.5)
+            blocks.append(reading_order.TextBlock(quad=b.quad, text=r.text, confidence=conf))
+            word_boxes.append({
+                "type": "word",
+                "content": r.text,
+                "confidence": round(conf, 4),
+                "polygon": b.flat_polygon(),
+                "page_number": page.page_number,
+            })
+        table_boxes = [
+            t.to_layout_box() for t in find_tables(word_boxes, page.page_number)
+        ]
+        lines = reading_order.order_blocks(blocks)
+        line_boxes = [
+            {
+                "type": "line",
+                "content": ln.text,
+                "confidence": round(ln.confidence, 4),
+                "polygon": [float(v) for v in ln.quad.reshape(-1)],
+                "page_number": page.page_number,
+            }
+            for ln in lines
+        ]
+        return OCROutput(
+            success=True,
+            markdown=reading_order.to_markdown(lines),
+            html="<br>\n".join(ln.text for ln in lines),
+            json_content={"lines": [ln.text for ln in lines]},
+            layout_boxes=word_boxes + line_boxes + table_boxes,
+            page_number=page.page_number,
+            page_width=float(page.width),
+            page_height=float(page.height),
+            processing_time_ms=(time.perf_counter() - t0) * 1000.0,
+            processed_image=pixels,
+        )
+
+    def process_document(self, data: bytes, filename: str) -> DocumentOCRResult:
+        """Decode (images; PDFs are a later slice), run every page through
+        the PageScheduler, combine."""
+        t0 = time.perf_counter()
+        try:
+            pages = load_document(data, filename, dpi=self.settings.pdf_raster_dpi)
+        except Exception as e:  # a decode failure is a structured error
+            return DocumentOCRResult(success=False, error=f"decode failed: {e}")
+        from ocr_system_tpu_torch.engine.scheduler import PageScheduler
+
+        scheduler = PageScheduler(self, self.settings)
+        outputs = scheduler.process(pages)
+        return DocumentOCRResult(
+            success=all(p.success for p in outputs) and bool(outputs),
+            pages=outputs,
+            combined_markdown=combine_markdown([p.markdown for p in outputs]),
+            combined_html="\n<hr>\n".join(p.html for p in outputs),
+            total_pages=len(outputs),
+            processing_time_ms=(time.perf_counter() - t0) * 1000.0,
+            error=None if outputs else "no pages decoded",
+            stage_times_ms=scheduler.timer.as_ms(),
+        )
+
+
+def combine_markdown(pages_md: list[str]) -> str:
+    """'## Page N' separators between pages; a single page passes through."""
+    if len(pages_md) <= 1:
+        return pages_md[0] if pages_md else ""
+    return "\n\n".join(f"## Page {i + 1}\n\n{md}" for i, md in enumerate(pages_md))

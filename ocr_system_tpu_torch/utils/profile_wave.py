@@ -1,0 +1,124 @@
+"""Where one 8-page wave's time goes on the card.
+
+    python3 -m ocr_system_tpu_torch.utils.profile_wave [--out DIR]
+
+Runs ``TorchOCREngine.process_pages`` on the 8 letter pages that
+chip_smoke.py drives (seeded random weights, one page deskewed), once to
+warm up and once under both ``cProfile`` (host: cumulative time per
+function) and
+``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
+with the wall time, the device's busy time and idle share over the wave,
+and the top host functions and device kernels; writes the full tables to
+DIR (default ``build/profile_wave``). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import io
+import json
+import os
+import pstats
+import sys
+import time
+
+import torch
+
+# host functions worth naming in the breakdown (module path fragment,
+# function name)
+_HOST = (
+    ("detector.py", "detect_batch"),
+    ("detector.py", "_letterbox_host"),
+    ("detector.py", "_rotate_host"),
+    ("detector.py", "_forward"),
+    ("device_boxes.py", "propagate_labels"),
+    ("device_boxes.py", "component_stats"),
+    ("boxes.py", "boxes_from_stats"),
+    ("boxes.py", "boxes_from_prob_map"),
+    ("detector.py", "_ink_and_emit"),
+    ("detector.py", "_ink_snap"),
+    ("image_ops.py", "estimate_skew_angle"),
+    ("dbnet.py", "forward_nchw"),
+    ("recognizer.py", "_rec_on_stack"),
+    ("pipeline.py", "_finish_page"),
+)
+
+
+def _host_rows(prof: cProfile.Profile) -> dict[str, float]:
+    stats = pstats.Stats(prof)
+    out = {}
+    for (path, _, name), (_, _, _, cum, _) in stats.stats.items():
+        for frag, fn in _HOST:
+            if name == fn and path.endswith(frag):
+                out[f"{frag}:{fn}"] = out.get(f"{frag}:{fn}", 0.0) + cum * 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_wave")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_wave: no CUDA device", file=sys.stderr)
+        return 1
+    from ocr_system_tpu_torch.utils.smoke import build_engine, letter_pages
+
+    engine = build_engine("cuda")
+    pages = letter_pages(8, 960, rotated=5, seed=1234)
+    engine.process_pages(pages)  # warm-up: cuDNN/cuBLAS set-up, kernel build
+    torch.cuda.synchronize()
+
+    host = cProfile.Profile()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as dev_prof:
+        t = time.perf_counter()
+        host.enable()
+        engine.process_pages(pages)
+        torch.cuda.synchronize()
+        host.disable()
+        wall_ms = (time.perf_counter() - t) * 1e3
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in dev_prof.events() if e.device_type == cuda]
+    busy_ms = None
+    if events:
+        # union of kernel intervals: the device's busy time over the wave
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        busy, cur_s, cur_e = 0.0, *spans[0]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy_ms = (busy + cur_e - cur_s) / 1e3
+    averages = dev_prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=30)
+    device_top = sorted(
+        ((a.key, a.self_device_time_total / 1e3) for a in averages
+         if a.self_device_time_total > 0),
+        key=lambda kv: -kv[1],
+    )[:12]
+    host_rows = _host_rows(host)
+
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "profile_wave.txt"), "w") as f:
+        f.write(table + "\n\n")
+        buf = io.StringIO()
+        pstats.Stats(host, stream=buf).sort_stats("cumulative").print_stats(40)
+        f.write(buf.getvalue())
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        "host_cumulative_ms": host_rows,
+        "device_top_ms": device_top,
+        "stage_ms": engine.stage_ms,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

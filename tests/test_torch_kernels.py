@@ -1,0 +1,152 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
+side runs the Pallas kernels in interpret mode, as tests/test_kernels.py
+does. The CUDA kernels themselves are held against the plain versions on
+the card (``cuda``-marked tests here, and chip_smoke.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ocr_system_tpu.engine.recognizer import _mask_pad
+from ocr_system_tpu.kernels.crop_pallas import crop_boxes_matmul
+from ocr_system_tpu.kernels.preprocess_pallas import fused_enhance as jax_enhance
+from ocr_system_tpu.ops.sampling import crop_boxes_separable
+from ocr_system_tpu_torch.kernels import crop, enhance
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+# the Pallas crop in interpret mode on the CPU is itself off the exact
+# bilinear value by up to ~1.4e-5 (measured on the first case below, where
+# the port equals a float64 evaluation of the same coordinates); against it
+# the crop is held at the JAX package's own kernel-test tolerance, and
+# against the float64 evaluation at ATOL
+CROP_VS_PALLAS_ATOL = 1e-4
+
+
+def _crop_exact(pages, aabbs, wv, H, W):
+    """float64 bilinear evaluation at the kernel's float32 coordinates."""
+    P, rows, cols = pages.shape
+    boxes = aabbs.reshape(-1, 4)
+    out = np.zeros((len(boxes), H, W))
+
+    def axis(lo, hi, n, size):
+        s = lo + ((hi - lo) * np.arange(n, dtype=np.float32)) / np.float32(n - 1)
+        s = np.clip(s.astype(np.float32), 0, size - 1)
+        a = np.floor(s).astype(int)
+        return a, np.minimum(a + 1, size - 1), s.astype(np.float64) - a
+
+    for k, (x0, y0, x1, y1) in enumerate(boxes):
+        pg = pages[k // aabbs.shape[1]].astype(np.float64) / 255.0
+        ya, yb, dy = axis(y0, y1, H, rows)
+        xa, xb, dx = axis(x0, x1, W, cols)
+        left = (1 - dy)[:, None] * pg[ya][:, xa] + dy[:, None] * pg[yb][:, xa]
+        right = (1 - dy)[:, None] * pg[ya][:, xb] + dy[:, None] * pg[yb][:, xb]
+        out[k] = (1 - dx) * left + dx * right
+        out[k][:, wv.reshape(-1)[k]:] = 0.0
+    return out
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (2, 64, 96, 3),  # tile == h path of the TPU kernel
+        (1, 480, 128, 3),  # tiled path (3 tiles), aligned width
+        (1, 480, 100, 3),  # unaligned width -> the TPU kernel's pad path
+    ],
+)
+def test_fused_enhance_matches_pallas(shape):
+    imgs = np.random.default_rng(0).random(shape).astype(np.float32)
+    ref = np.asarray(jax_enhance(jnp.asarray(imgs), interpret=True))
+    got = enhance.fused_enhance(torch.from_numpy(imgs)).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() < ATOL
+
+
+def test_enhance_gray_matches_repeated_rgb():
+    """The detector's gray entry equals fused_enhance of the gray page
+    repeated three times, written channels-first."""
+    gray = np.random.default_rng(3).random((2, 64, 96)).astype(np.float32)
+    ref = np.asarray(jax_enhance(jnp.asarray(np.repeat(gray[..., None], 3, -1)),
+                                 interpret=True))
+    got = enhance.enhance_gray(torch.from_numpy(gray)).numpy()
+    assert got.shape == (2, 3, 64, 96)
+    assert np.abs(got.transpose(0, 2, 3, 1) - ref).max() < ATOL
+
+
+def _boxes(P, N, S, H, W, seed, max_h, rows, min_h=8):
+    rng = np.random.default_rng(seed)
+    pages = rng.integers(0, 255, (P, rows, S), np.uint8)
+    x0 = rng.uniform(-10, S - 60, (P, N))  # incl. off-page starts
+    y0 = rng.uniform(-5, max(rows - 30, 2), (P, N))
+    w = rng.uniform(20, 100, (P, N))
+    h = rng.uniform(min_h, max_h, (P, N))
+    aabbs = np.stack([x0, y0, x0 + w, y0 + h], -1).astype(np.float32)
+    wv = np.clip(w / h * H, 16, W).astype(np.int32)
+    return pages, aabbs, wv
+
+
+@pytest.mark.parametrize(
+    "P,N,S,H,W,seed,max_h,rows",
+    [
+        (2, 4, 256, 48, 320, 1, 40, None),  # TestCropMatmul cases
+        (1, 3, 200, 48, 160, 1, 40, None),  # unaligned page width
+        (1, 4, 256, 48, 320, 7, 40, None),  # page-edge boxes
+        (3, 2, 320, 48, 320, 1, 30, 48),  # line-strip pages
+    ],
+)
+def test_crop_matches_pallas(P, N, S, H, W, seed, max_h, rows):
+    pages, aabbs, wv = _boxes(P, N, S, H, W, seed, max_h, rows or S)
+    ref = np.asarray(crop_boxes_matmul(
+        jnp.asarray(pages), jnp.asarray(aabbs), jnp.asarray(wv), (H, W),
+        interpret=True,
+    ))
+    got = crop.crop_boxes(torch.from_numpy(pages), torch.from_numpy(aabbs),
+                          torch.from_numpy(wv), (H, W)).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() < CROP_VS_PALLAS_ATOL
+    assert np.abs(got - _crop_exact(pages, aabbs, wv, H, W)).max() < ATOL
+
+
+def test_crop_tall_boxes_match_separable():
+    """Boxes taller than the TPU kernel's 112-row slab (which it cannot
+    crop) against the separable gather path: no height bound here. Boxes
+    lie on the page, where the two JAX paths agree up to the rounding of
+    their sample coordinates (linspace there), which moves values by up to
+    ~3e-5: held at the Pallas tolerance, and at ATOL against float64."""
+    P, N, S, H, W = 2, 5, 400, 48, 320
+    rng = np.random.default_rng(11)
+    pages = rng.integers(0, 255, (P, S, S), np.uint8)
+    x0 = rng.uniform(0, 150, (P, N))
+    y0 = rng.uniform(0, 100, (P, N))
+    w = rng.uniform(100, 240, (P, N))
+    h = rng.uniform(120, 290, (P, N))
+    aabbs = np.stack([x0, y0, x0 + w, y0 + h], -1).astype(np.float32)
+    wv = np.clip(w / h * H, 16, W).astype(np.int32)
+    pg = jnp.asarray(pages).astype(jnp.float32) / 255.0
+    ref = jax.vmap(lambda p, b: crop_boxes_separable(p, b, (H, W)))(
+        pg, jnp.asarray(aabbs))
+    ref = _mask_pad(ref.reshape(-1, H, W)[..., None],
+                    jnp.asarray(wv).reshape(-1))[..., 0]
+    got = crop.crop_boxes(torch.from_numpy(pages), torch.from_numpy(aabbs),
+                          torch.from_numpy(wv), (H, W)).numpy()
+    assert np.abs(got - np.asarray(ref)).max() < CROP_VS_PALLAS_ATOL
+    assert np.abs(got - _crop_exact(pages, aabbs, wv, H, W)).max() < ATOL
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU the wrappers compute the plain versions and launch (and
+    count) nothing."""
+    before = (enhance.LAUNCHES.value, crop.LAUNCHES.value)
+    gray = torch.rand(1, 16, 16)
+    assert torch.equal(enhance.enhance_gray(gray), enhance.enhance_gray_plain(gray))
+    pages = torch.randint(0, 255, (1, 16, 16), dtype=torch.uint8)
+    aabbs = torch.tensor([[[1.0, 2.0, 12.0, 9.0]]])
+    wv = torch.tensor([[60]], dtype=torch.int32)
+    assert torch.equal(crop.crop_boxes(pages, aabbs, wv, (48, 80)),
+                       crop.crop_boxes_plain(pages, aabbs, wv, (48, 80)))
+    assert (enhance.LAUNCHES.value, crop.LAUNCHES.value) == before

@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout, holds each one against its plain
-PyTorch version at the shapes the serving path gives it (8 pages at the 960
-bucket), then runs the serving path itself with seeded random weights at
+Builds the CUDA kernels from the checkout, holds each form of each one
+(bf16 and float32 out) against its plain PyTorch version at the shapes the
+serving path gives it (8 pages at the 960 bucket, every rec width) and
+times it cold (the L2 evicted before the launch; the kernels line reports
+this time for the serving bf16 form) and warm, then runs the serving path
+itself with seeded random weights at
 full model width: 160 word quads per page (every width bucket, axis-aligned
 and rotated) through ``Recognizer.recognize_pages``,
 one 8-page wave through ``TorchOCREngine.process_pages``, two waves through
@@ -197,14 +200,23 @@ def phase_scheduler(engine, pages) -> dict:
             "wall_s": sec, "pages_per_s": len(pages) / sec}
 
 
+# Spinning the card before the timed launches lets the host queue them
+# all first, so the events time the kernels and not the host's launch
+# overhead (a 15 us kernel is shorter than one Python wrapper call).
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock
+FLUSH_BYTES = 256 << 20  # written before each cold launch: 5x the 50 MB L2
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() over iters warm launches (CUDA events)."""
+    """Warm: mean device time of fn() over iters back-to-back launches
+    (CUDA events), after one untimed call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -213,38 +225,105 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_enhance(dev) -> dict:
-    """The enhance kernel at the det path's shape (8 gray 960 x 960 pages ->
-    (8, 3, 960, 960)), plus its RGB (JAX-signature) form at (8, 960, 960, 3)."""
+def cold_ms(fn, flush, iters: int = 10) -> float:
+    """Cold: mean device time of one fn() with the L2 evicted before it
+    (FLUSH_BYTES written), the events around that launch alone."""
     import torch
 
-    from ocr_system_tpu_torch.kernels import enhance
-
-    rng = np.random.default_rng(SEED + 2)
-    gray = torch.from_numpy(rng.random((8, 960, 960), np.float32)).to(dev)
-    rgb = torch.from_numpy(rng.random((8, 960, 960, 3), np.float32)).to(dev)
-    err_gray = (enhance.enhance_gray(gray) - enhance.enhance_gray_plain(gray)).abs().max().item()
-    err_rgb = (enhance.fused_enhance(rgb) - enhance.fused_enhance_plain(rgb)).abs().max().item()
-    torch.cuda.synchronize()
-    if not (err_gray <= 1e-5 and err_rgb <= 1e-5):
-        raise AssertionError(f"enhance disagrees: gray {err_gray}, rgb {err_rgb}")
-    ms = cuda_ms(lambda: enhance.enhance_gray(gray))
-    plain_ms = cuda_ms(lambda: enhance.enhance_gray_plain(gray))
-    b, h, w = gray.shape
-    nbytes = gray.numel() * 4 + b * 3 * h * w * 4  # gray in, 3 planes out
-    # contrast 3, column and row blur 9 + 9, unsharp 4, 3 x normalise 2
-    flops = b * h * w * (3 + 9 + 9 + 4 + 6)
-    return {"name": "enhance", "max_abs_err": max(err_gray, err_rgb),
-            "max_abs_err_rgb": err_rgb, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "shape": [b, h, w],
-            **bound(nbytes, flops)}
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.fill_(1)
+        torch.cuda._sleep(SPIN_CYCLES // 10)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def bound(nbytes: float, flops: float) -> dict:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
+
+
+def agreement(got, ref) -> dict:
+    """A kernel form against its plain version's float32 result: within
+    1e-5 for float32; for bf16, equal to it rounded to bf16 but for one ulp
+    on at most 0.1% of elements. Raises if not."""
+    import torch
+
+    from ocr_system_tpu_torch.utils.smoke import bf16_agrees, bf16_disagreement
+
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - ref.to(torch.bfloat16).float()).abs().max().item()
+        worst, share = bf16_disagreement(got, ref)
+        if not bf16_agrees(got, ref):
+            raise AssertionError(f"bf16 form disagrees: {worst} ulps on {share:.2e} of elements")
+        return {"max_abs_err": err, "bf16_max_ulps": worst, "bf16_share_off": share}
+    err = (got - ref).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"float32 form disagrees: {err}")
+    return {"max_abs_err": err}
+
+
+def measure_form(form: str, call, plain, ref, nbytes: float, flops: float, flush,
+                 plain_iters: int = 5) -> dict:
+    """Check one kernel form against its plain version's float32 result
+    ``ref``, then time it cold and warm beside its plain version."""
+    import torch
+
+    got = call()
+    torch.cuda.synchronize()
+    row = {"form": form, **agreement(got, ref)}
+    row["ms"] = cold_ms(call, flush)
+    row["warm_ms"] = cuda_ms(call)
+    row["plain_ms"] = cuda_ms(plain, plain_iters)
+    row.update(bound(nbytes, flops))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def kernel_enhance(dev, flush) -> dict:
+    """The enhance kernel at the det path's shape (8 u8 960 x 960 canvases ->
+    (8, 3, 960, 960) in bf16, the serving compute dtype, and in float32),
+    plus its RGB (JAX-signature) form at (8, 960, 960, 3)."""
+    import torch
+
+    from ocr_system_tpu_torch.kernels import enhance
+
+    rng = np.random.default_rng(SEED + 2)
+    gray = torch.from_numpy(rng.integers(0, 256, (8, 960, 960), np.uint8)).to(dev)
+    means = enhance.to_unit(gray).mean(dim=(1, 2))
+    rgb = torch.from_numpy(rng.random((8, 960, 960, 3), np.float32)).to(dev)
+    b, h, w = gray.shape
+    ref_gray = enhance.enhance_gray_plain(gray, means)
+    ref_rgb = enhance.fused_enhance_plain(rgb)
+    # contrast 3, row and column blur 9 + 9, unsharp 4, normalise 2 per plane
+    flops_gray = b * h * w * (3 + 9 + 9 + 4 + 3 * 2)
+    flops_rgb = 3 * b * h * w * (3 + 9 + 9 + 4 + 2)
+    forms = []
+    for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        forms.append(measure_form(
+            f"gray_u8->{tag}", lambda dt=dt: enhance.enhance_gray(gray, means, dt),
+            lambda dt=dt: enhance.enhance_gray_plain(gray, means, dt), ref_gray,
+            gray.numel() + b * 3 * h * w * size, flops_gray, flush))
+    for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        forms.append(measure_form(
+            f"rgb_f32->{tag}", lambda dt=dt: enhance.fused_enhance(rgb, out_dtype=dt),
+            lambda dt=dt: enhance.fused_enhance_plain(rgb, out_dtype=dt), ref_rgb,
+            rgb.numel() * (4 + size), flops_rgb, flush))
+    # the kernels line reports the detector's serving form
+    return {"name": "enhance", **forms[0], "library_ms": None, "shape": [b, h, w],
+            "forms": forms}
 
 
 def crop_case(rng, pages_n: int, side: int, n: int, width: int):
@@ -260,9 +339,10 @@ def crop_case(rng, pages_n: int, side: int, n: int, width: int):
     return aabbs, wv
 
 
-def kernel_crop(dev) -> dict:
+def kernel_crop(dev, flush) -> dict:
     """The crop kernel at the rec path's shape: 8 canvases of 960 x 960 with
-    160 boxes each, at every rec width bucket (320, 640, 1280)."""
+    160 boxes each, at every rec width bucket (320, 640, 1280), in bf16
+    (the serving compute dtype) and float32."""
     import torch
     import torch.nn.functional as F
 
@@ -270,20 +350,15 @@ def kernel_crop(dev) -> dict:
 
     rng = np.random.default_rng(SEED + 3)
     pages = torch.from_numpy(rng.integers(0, 256, (8, 960, 960), np.uint8)).to(dev)
-    rows = []
+    forms = []
     for width in (320, 640, 1280):
         aabbs_np, wv_np = crop_case(rng, 8, 960, 160, width)
         aabbs = torch.from_numpy(aabbs_np).to(dev)
         wv = torch.from_numpy(wv_np).to(dev)
         shape = (48, width)
-        err = (crop.crop_boxes(pages, aabbs, wv, shape)
-               - crop.crop_boxes_plain(pages, aabbs, wv, shape)).abs().max().item()
-        if not err <= 1e-5:
-            raise AssertionError(f"crop disagrees at W={width}: {err}")
-        ms = cuda_ms(lambda: crop.crop_boxes(pages, aabbs, wv, shape))
-        plain_ms = cuda_ms(lambda: crop.crop_boxes_plain(pages, aabbs, wv, shape), 5)
+        ref = crop.crop_boxes_plain(pages, aabbs, wv, shape)
         # yardstick only: grid_sample's bilinear with border padding on
-        # the same sample points (no w_valid mask)
+        # the same sample points (no w_valid mask, float32 out)
         p_f = pages[:, None].float() / 255.0
         steps_h = torch.arange(48, device=dev, dtype=torch.float32) / 47.0
         steps_w = torch.arange(width, device=dev, dtype=torch.float32) / (width - 1)
@@ -294,16 +369,21 @@ def kernel_crop(dev) -> dict:
             (gx * 2 / 959 - 1).expand(-1, -1, 48, -1),
             (gy * 2 / 959 - 1).expand(-1, -1, -1, width),
         ], -1).reshape(8, 160 * 48, width, 2)
-        library_ms = cuda_ms(lambda: F.grid_sample(
-            p_f, grid, mode="bilinear", padding_mode="border", align_corners=True))
+        library_ms = cold_ms(lambda: F.grid_sample(
+            p_f, grid, mode="bilinear", padding_mode="border", align_corners=True), flush)
         n_out = 8 * 160 * 48 * width
-        nbytes = pages.numel() + aabbs.numel() * 4 + wv.numel() * 4 + n_out * 4
-        rows.append({"width": width, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     **bound(nbytes, n_out * 14)})
-    # the kernels line reports the W = 1280 case (the largest); every
-    # width is printed in the kernels phase
-    return {"name": "crop", **rows[-1], "by_width": rows}
+        for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            nbytes = pages.numel() + aabbs.numel() * 4 + wv.numel() * 4 + n_out * size
+            row = measure_form(
+                f"W{width}->{tag}", lambda dt=dt: crop.crop_boxes(pages, aabbs, wv, shape, dt),
+                lambda dt=dt: crop.crop_boxes_plain(pages, aabbs, wv, shape, dt), ref,
+                nbytes, n_out * 14, flush)
+            forms.append({"width": width, **row, "library_ms": library_ms})
+    # the kernels line reports the serving form at W = 1280 (the largest);
+    # every form is printed in the kernels phase
+    serving = next(f for f in forms if f["form"] == "W1280->bf16")
+    return {"name": "crop", **serving, "forms": forms}
 
 
 def main() -> int:
@@ -333,7 +413,7 @@ def main() -> int:
     so = _build.build()
     _build.library()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "library": os.path.relpath(so, REPO),
@@ -341,8 +421,10 @@ def main() -> int:
 
     # ---- phase 1: kernels against their plain versions ----
     t = time.perf_counter()
-    k_enh = kernel_enhance(dev)
-    k_crop = kernel_crop(dev)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    k_enh = kernel_enhance(dev, flush)
+    k_crop = kernel_crop(dev, flush)
+    del flush
     emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop,
           "elapsed_s": time.perf_counter() - t})
 
@@ -382,6 +464,8 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "form": k["form"], "warm_ms": k["warm_ms"],
+            "share_of_bound": k["share_of_bound"],
         })
     emit({"kernels": kernels, "total_s": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -29,7 +29,7 @@ from ocr_system_tpu_torch.engine.host_image import (
     rgb_to_gray,
     rotate_cubic,
 )
-from ocr_system_tpu_torch.kernels.enhance import enhance_gray
+from ocr_system_tpu_torch.kernels.enhance import enhance_gray, to_unit
 from ocr_system_tpu_torch.models.dbnet import DBNet
 from ocr_system_tpu_torch.ops import image_ops
 from ocr_system_tpu_torch.ops.boxes import (
@@ -84,12 +84,14 @@ class Detector:
         x = torch.from_numpy(packed).to(self.device)
         b, side = x.shape[0], x.shape[1]
         gray_u8 = torch.stack([x >> 4, x & 15], dim=-1).reshape(b, side, side) * 17
-        f = gray_u8.float() / 255.0
+        f = to_unit(gray_u8)
         if s.enable_deskew:
             angles = image_ops.estimate_skew_angle(f)
         else:
             angles = torch.zeros(b, device=self.device)
-        prob = self.model.forward_nchw(enhance_gray(f))
+        # the kernel reads the u8 canvas and writes the compute dtype
+        x_in = enhance_gray(gray_u8, f.mean(dim=(1, 2)), self.model.policy.compute_dtype)
+        prob = self.model.forward_nchw(x_in)
         prob_ds = F.avg_pool2d(prob[:, None], PROB_STRIDE)[:, 0]
         k_top = min(s.det_stats_k, s.max_boxes_per_page)
         stats, n_comps = component_stats(prob_ds, s.det_bin_thresh, k_top)

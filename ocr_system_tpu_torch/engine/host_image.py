@@ -2,8 +2,9 @@
 JAX package calls cv2 for these in engine/detector.py and
 engine/recognizer.py).
 
-- ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` — half-pixel
-  centres, no antialias, source indices clamped at the borders.
+- ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` on uint8, bit for
+  bit — half-pixel centres, no antialias, source indices clamped at the
+  borders, OpenCV's 11-bit fixed-point weights and shifts.
 - ``rotate_cubic``: ``cv2.warpAffine`` of ``cv2.getRotationMatrix2D`` with
   ``INTER_CUBIC`` (a = -0.75) and a white constant border; OpenCV 5 samples
   at float coordinates with float weights, as this does.
@@ -28,29 +29,50 @@ def rgb_to_gray(page: np.ndarray) -> np.ndarray:
 
 
 def _linear_taps(n_out: int, n_in: int):
-    s = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    i0 = np.floor(s).astype(np.int64)
-    f = s - i0
-    f = np.where((i0 < 0) | (i0 >= n_in - 1), 0.0, f)
-    i0 = np.clip(i0, 0, n_in - 1)
-    return i0, np.minimum(i0 + 1, n_in - 1), f
+    """OpenCV's INTER_LINEAR taps along one axis: both source indices and
+    their 11-bit weights. The fraction is kept even where both taps clamp
+    to one border index: the vertical pass truncates its two terms
+    separately, so it shows there."""
+    scale = 1.0 / (n_out / n_in)
+    s = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(s)
+    f = (s - i0).astype(np.float32)
+    i0 = i0.astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    return np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), w0, w1
 
 
 def resize_linear(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """uint8 (H, W[, C]) -> (nh, nw[, C]) bilinear, rounded to nearest."""
+    """uint8 (H, W[, C]) -> (nh, nw[, C]) bilinear in OpenCV's fixed point:
+    rows first in int32 with 11-bit weights, then columns, each term
+    shifted as ``cv2.resize`` shifts it, so the result equals it bit for
+    bit."""
     nh, nw = out_hw
     h, w = img.shape[:2]
     if (nh, nw) == (h, w):
         return img.copy()
-    t = torch.from_numpy(np.ascontiguousarray(img)).to(torch.float64)
-    y0, y1, fy = (torch.from_numpy(a) for a in _linear_taps(nh, h))
-    x0, x1, fx = (torch.from_numpy(a) for a in _linear_taps(nw, w))
+    ya, yb, v0, v1 = _linear_taps(nh, h)
+    xa, xb, u0, u1 = _linear_taps(nw, w)
     extra = (1,) * (img.ndim - 2)
-    fy = fy.view(-1, 1, *extra)
-    fx = fx.view(1, -1, *extra)
-    rows = t[y0] * (1.0 - fy) + t[y1] * fy
-    out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
-    return torch.floor(out + 0.5).clamp(0, 255).to(torch.uint8).numpy()
+    rows = np.unique(np.concatenate([ya, yb]))  # only the rows sampled
+    src = img[rows].astype(np.int32)
+    r = np.take(src, xa, axis=1)
+    r *= u0.reshape(1, -1, *extra)
+    rb = np.take(src, xb, axis=1)
+    rb *= u1.reshape(1, -1, *extra)
+    r += rb
+    r >>= 4
+    top = np.take(r, np.searchsorted(rows, ya), axis=0)
+    top *= v0.reshape(-1, 1, *extra)
+    top >>= 16
+    bot = np.take(r, np.searchsorted(rows, yb), axis=0)
+    bot *= v1.reshape(-1, 1, *extra)
+    bot >>= 16
+    top += bot
+    top += 2
+    top >>= 2
+    return np.clip(top, 0, 255).astype(np.uint8)
 
 
 def _cubic_weights(t: torch.Tensor) -> list[torch.Tensor]:

@@ -118,9 +118,10 @@ class Recognizer:
         widths = torch.from_numpy(w_valid).to(self.device)
         if axis_aligned:
             aabbs = quads_to_aabbs(quads.reshape(-1, 4, 2)).reshape(n_pages, n_per_page, 4)
-            # the kernel folds /255 and the pad mask into the crop
+            # the kernel folds /255, the pad mask and the cast to the
+            # compute dtype into the crop
             crops = crop_boxes(stack_dev, torch.from_numpy(aabbs).to(self.device),
-                               widths, (h, bucket))
+                               widths, (h, bucket), self.model.policy.compute_dtype)
         else:
             q = torch.from_numpy(quads).to(self.device)
             pages = stack_dev.float() / 255.0

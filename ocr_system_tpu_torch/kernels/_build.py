@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -33,14 +35,10 @@ build_log = ""  # nvcc's output (register and shared-memory use per kernel)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ocr_enhance": (
-        [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
-         _F, _F, _P, _P, _P, _P]
-    ),
-    "ocr_crop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ocr_enhance": [_P, _I, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "ocr_crop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -112,6 +110,15 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+OUT_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels write
+
+
+def check_out_dtype(out_dtype: torch.dtype, name: str) -> None:
+    """Raise unless the kernels can write ``out_dtype``."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
 def check(rc: int, name: str) -> None:

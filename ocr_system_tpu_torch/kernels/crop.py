@@ -6,7 +6,8 @@ its semantics: source coordinates clamped into the page (border
 replication), bilinear, scaled by 1/255, columns >= w_valid zeroed. The TPU
 kernel builds hat-weight matmuls on a 128-row slab to avoid TPU gathers;
 Hopper gathers well, so the kernel samples 4 taps directly and has no box
-height bound. It is bound by its float32 output bytes (crops x H x W x 4).
+height bound. It is bound by its output bytes (crops x H x W), written in
+the recognizer's compute dtype (float32 or bfloat16).
 
 On a CPU tensor ``crop_boxes`` runs the plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.
@@ -19,6 +20,7 @@ import torch
 from ocr_system_tpu_torch.kernels import _build
 
 LAUNCHES = _build.LaunchCounter()
+MAX_WIDTH = 6000  # the column taps, 8 B each, stay in 48 KB of shared memory
 
 
 def _axis(lo: torch.Tensor, hi: torch.Tensor, n_out: int, size: int):
@@ -37,8 +39,10 @@ def _axis(lo: torch.Tensor, hi: torch.Tensor, n_out: int, size: int):
 
 
 def crop_boxes_plain(pages: torch.Tensor, aabbs: torch.Tensor,
-                     w_valid: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
+                     w_valid: torch.Tensor, out_shape: tuple[int, int],
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of ``crop_boxes``."""
+    _build.check_out_dtype(out_dtype, "crop_boxes")
     p, rows, cols = pages.shape
     n = aabbs.shape[1]
     h_out, w_out = out_shape
@@ -59,16 +63,19 @@ def crop_boxes_plain(pages: torch.Tensor, aabbs: torch.Tensor,
     out = (1.0 - dx) * left + dx * right
     cols_idx = torch.arange(w_out, device=pages.device)
     keep = cols_idx[None, :] < w_valid.reshape(-1, 1)
-    return torch.where(keep[:, None, :], out, torch.zeros_like(out))
+    return torch.where(keep[:, None, :], out, torch.zeros_like(out)).to(out_dtype)
 
 
 def crop_boxes(pages: torch.Tensor, aabbs: torch.Tensor, w_valid: torch.Tensor,
-               out_shape: tuple[int, int]) -> torch.Tensor:
+               out_shape: tuple[int, int],
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """pages (P, R, C) uint8 gray; aabbs (P, N, 4) [x0, y0, x1, y1] float32
-    in page coords; w_valid (P, N) int32 -> (P*N, h, w) float32 crops in
-    [0, 1], columns >= w_valid zeroed."""
+    in page coords; w_valid (P, N) int32 -> (P*N, h, w) crops in [0, 1] in
+    ``out_dtype``, columns >= w_valid zeroed. Height and width are at
+    least 2, as for the JAX kernel."""
     if pages.device.type == "cpu":
-        return crop_boxes_plain(pages, aabbs, w_valid, out_shape)
+        return crop_boxes_plain(pages, aabbs, w_valid, out_shape, out_dtype)
+    _build.check_out_dtype(out_dtype, "crop_boxes")
     p, rows, cols = pages.shape
     h_out, w_out = out_shape
     n = aabbs.shape[1] if aabbs.dim() == 3 else -1
@@ -83,13 +90,16 @@ def crop_boxes(pages: torch.Tensor, aabbs: torch.Tensor, w_valid: torch.Tensor,
     if not (aabbs.device == w_valid.device == pages.device):
         raise ValueError("crop_boxes: all inputs must be on one device")
     if h_out < 2 or w_out < 2:
-        raise ValueError(f"crop_boxes: output shape {out_shape} below 2x2")
-    out = torch.empty((p * n, h_out, w_out), dtype=torch.float32, device=pages.device)
+        raise ValueError(f"crop_boxes: output shape {out_shape}: both sides must be "
+                         "at least 2")
+    if w_out > MAX_WIDTH:
+        raise ValueError(f"crop_boxes: width {w_out} above the kernel's {MAX_WIDTH}")
+    out = torch.empty((p * n, h_out, w_out), dtype=out_dtype, device=pages.device)
     if p * n == 0:
         return out
     rc = _build.library().ocr_crop(
         pages.data_ptr(), aabbs.data_ptr(), w_valid.data_ptr(), out.data_ptr(),
-        p * n, n, rows, cols, h_out, w_out,
+        int(out_dtype == torch.bfloat16), p * n, n, rows, cols, h_out, w_out,
         torch.cuda.current_stream(pages.device).cuda_stream,
     )
     _build.check(rc, "crop")

@@ -3,10 +3,11 @@ normalisation, as one CUDA kernel (``csrc/kernels.cu`` ``enhance_kernel``).
 
 Replaces ocr_system_tpu/kernels/preprocess_pallas.py::fused_enhance. The
 kernel is bound by device-memory bytes (one read per input element, one
-write per output element); its note in the CUDA source says how the
-design keeps the stencil's reuse in shared memory. The per-image luma
-mean is a separate reduction before the launch, as the TPU kernel leaves
-it to XLA.
+write per output element): the detector's form reads the u8 canvas and
+writes the model's compute dtype. Its note in the CUDA source says how the
+design stages a tile in shared memory and keeps the stencil in registers.
+The per-image luma mean is a separate reduction before the launch, as the
+TPU kernel leaves it to XLA.
 
 On a CPU tensor each wrapper runs the plain PyTorch version below; on a
 CUDA tensor it launches the kernel or raises.
@@ -35,9 +36,8 @@ def gauss5() -> tuple[float, ...]:
 def _enhance_planes(planes: torch.Tensor, means: torch.Tensor,
                     contrast: float, sharpness: float) -> torch.Tensor:
     """Plain version of the kernel's arithmetic on (B, C, H, W) planes with
-    one mean per image: contrast, separable blur (rows first) with edge
-    replication, unsharp blend. Returns the [0, 1] image before
-    normalisation."""
+    one mean per image: contrast, separable blur with edge replication,
+    unsharp blend. Returns the [0, 1] image before normalisation."""
     m = means.view(-1, 1, 1, 1)
     c = torch.clamp(m + (planes - m) * contrast, 0.0, 1.0)
     blur = image_ops.blur_planes(c)
@@ -49,35 +49,51 @@ def _norm(dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.tensor(NORM_STD, dtype=dtype, device=device))
 
 
+def to_unit(gray_u8: torch.Tensor) -> torch.Tensor:
+    """u8 -> float32 in [0, 1] by a true division, the kernel's (and the
+    JAX detector's) ``gray_u8 / 255.0``. The divisor is a tensor: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    rounds 126 of the 256 values differently."""
+    return gray_u8.float() / torch.tensor(255.0, device=gray_u8.device)
+
+
 def fused_enhance_plain(images: torch.Tensor, contrast: float = CONTRAST,
-                        sharpness: float = SHARPNESS) -> torch.Tensor:
+                        sharpness: float = SHARPNESS,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of ``fused_enhance``."""
+    _build.check_out_dtype(out_dtype, "fused_enhance")
     luma = 0.299 * images[..., 0] + 0.587 * images[..., 1] + 0.114 * images[..., 2]
     means = luma.mean(dim=(1, 2))
     s = _enhance_planes(images.permute(0, 3, 1, 2), means, contrast, sharpness)
     nm, ns = _norm(images.dtype, images.device)
-    return ((s.permute(0, 2, 3, 1) - nm) / ns).contiguous()
+    return ((s.permute(0, 2, 3, 1) - nm) / ns).to(out_dtype).contiguous()
 
 
-def enhance_gray_plain(gray: torch.Tensor, contrast: float = CONTRAST,
+def enhance_gray_plain(gray_u8: torch.Tensor, means: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32,
+                       contrast: float = CONTRAST,
                        sharpness: float = SHARPNESS) -> torch.Tensor:
     """Plain PyTorch version of ``enhance_gray``."""
-    s = _enhance_planes(gray[:, None], gray.mean(dim=(1, 2)), contrast, sharpness)
-    nm, ns = _norm(gray.dtype, gray.device)
-    return (s - nm.view(1, 3, 1, 1)) / ns.view(1, 3, 1, 1)
+    _build.check_out_dtype(out_dtype, "enhance_gray")
+    s = _enhance_planes(to_unit(gray_u8)[:, None], means.float(), contrast, sharpness)
+    nm, ns = _norm(torch.float32, gray_u8.device)
+    return ((s - nm.view(1, 3, 1, 1)) / ns.view(1, 3, 1, 1)).to(out_dtype)
 
 
-def _launch(inp: torch.Tensor, out: torch.Tensor, means: torch.Tensor,
-            in_strides: tuple[int, int, int, int], in_channels: int,
-            out_strides: tuple[int, int, int, int], contrast: float,
-            sharpness: float) -> None:
+def _launch(inp: torch.Tensor, out: torch.Tensor, means: torch.Tensor, planes: int,
+            contrast: float, sharpness: float) -> None:
+    if out.numel() >= 2**31:
+        raise ValueError(f"enhance: {tuple(out.shape)} is too large for 32-bit offsets")
+    for name, t in (("input", inp), ("output", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"enhance: the {name} must be 16-byte aligned")
     lib = _build.library()
-    b, h, w = means.shape[0], inp.shape[1], inp.shape[2]
     arr5, arr3 = ctypes.c_float * 5, ctypes.c_float * 3
     g, nm, ns = arr5(*gauss5()), arr3(*NORM_MEAN), arr3(*NORM_STD)
     rc = lib.ocr_enhance(
-        inp.data_ptr(), out.data_ptr(), means.data_ptr(), b, h, w, in_channels,
-        *in_strides, *out_strides, contrast, sharpness,
+        inp.data_ptr(), int(inp.dtype == torch.uint8), out.data_ptr(),
+        int(out.dtype == torch.bfloat16), means.data_ptr(), planes,
+        inp.shape[-2], inp.shape[-1], contrast, sharpness,
         ctypes.addressof(g), ctypes.addressof(nm), ctypes.addressof(ns),
         torch.cuda.current_stream(inp.device).cuda_stream,
     )
@@ -85,45 +101,53 @@ def _launch(inp: torch.Tensor, out: torch.Tensor, means: torch.Tensor,
     LAUNCHES.add()
 
 
-def _check_cuda_f32(x: torch.Tensor, ndim: int, name: str) -> None:
-    if x.dtype != torch.float32 or x.dim() != ndim or not x.is_contiguous():
+def _check_cuda(x: torch.Tensor, dtype: torch.dtype, ndim: int, name: str) -> None:
+    if x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
         raise ValueError(
-            f"{name}: expected a contiguous float32 tensor of {ndim} dims, "
+            f"{name}: expected a contiguous {dtype} tensor of {ndim} dims, "
             f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
 
 
 def fused_enhance(images: torch.Tensor, contrast: float = CONTRAST,
-                  sharpness: float = SHARPNESS) -> torch.Tensor:
-    """images: (B, H, W, 3) float32 in [0, 1] -> normalised (B, H, W, 3):
-    the JAX ``fused_enhance`` signature. Luma mean per image, contrast blend,
-    unsharp mask, ImageNet normalisation."""
+                  sharpness: float = SHARPNESS,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """images: (B, H, W, 3) float32 in [0, 1] -> normalised (B, H, W, 3) in
+    ``out_dtype``: the JAX ``fused_enhance`` signature. Luma mean per image,
+    contrast blend, unsharp mask, ImageNet normalisation. The kernel takes
+    planes, so this form transposes on the way in and out (it is not on
+    the detector's path)."""
     if images.device.type == "cpu":
-        return fused_enhance_plain(images, contrast, sharpness)
-    _check_cuda_f32(images, 4, "fused_enhance")
+        return fused_enhance_plain(images, contrast, sharpness, out_dtype)
+    _build.check_out_dtype(out_dtype, "fused_enhance")
+    _check_cuda(images, torch.float32, 4, "fused_enhance")
     if images.shape[-1] != 3:
         raise ValueError(f"fused_enhance: expected 3 channels, got {images.shape}")
     luma = 0.299 * images[..., 0] + 0.587 * images[..., 1] + 0.114 * images[..., 2]
     means = luma.mean(dim=(1, 2)).contiguous()
-    out = torch.empty_like(images)
-    b, h, w, _ = images.shape
-    nhwc = (h * w * 3, 1, w * 3, 3)  # strides of (b, c, y, x)
-    _launch(images, out, means, nhwc, 3, nhwc, contrast, sharpness)
-    return out
+    planes = images.permute(0, 3, 1, 2).contiguous()
+    out = torch.empty(planes.shape, dtype=out_dtype, device=images.device)
+    _launch(planes, out, means, planes.shape[0] * 3, contrast, sharpness)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
-def enhance_gray(gray: torch.Tensor, contrast: float = CONTRAST,
+def enhance_gray(gray_u8: torch.Tensor, means: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32,
+                 contrast: float = CONTRAST,
                  sharpness: float = SHARPNESS) -> torch.Tensor:
-    """The detector's entry: (B, H, W) float32 gray pages in [0, 1] ->
-    (B, 3, H, W) normalised model input (the three channels differ only in
-    their normalisation). Equal to ``fused_enhance`` of the gray page
-    repeated three times, up to the luma weights' rounding."""
-    if gray.device.type == "cpu":
-        return enhance_gray_plain(gray, contrast, sharpness)
-    _check_cuda_f32(gray, 3, "enhance_gray")
-    means = gray.mean(dim=(1, 2)).contiguous()
-    b, h, w = gray.shape
-    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=gray.device)
-    _launch(gray, out, means, (h * w, 0, w, 1), 1, (3 * h * w, h * w, w, 1),
-            contrast, sharpness)
+    """The detector's entry: (B, H, W) uint8 gray canvases and their (B,)
+    means of ``to_unit(gray_u8)`` -> (B, 3, H, W) normalised model input in
+    ``out_dtype`` (the three channels differ only in their normalisation).
+    Equal to ``fused_enhance`` of the gray page / 255 repeated three
+    times, up to the luma weights' rounding of the mean."""
+    if gray_u8.device.type == "cpu":
+        return enhance_gray_plain(gray_u8, means, out_dtype, contrast, sharpness)
+    _build.check_out_dtype(out_dtype, "enhance_gray")
+    _check_cuda(gray_u8, torch.uint8, 3, "enhance_gray")
+    b, h, w = gray_u8.shape
+    _check_cuda(means, torch.float32, 1, "enhance_gray means")
+    if means.shape[0] != b or means.device != gray_u8.device:
+        raise ValueError(f"enhance_gray: means must be ({b},) on {gray_u8.device}")
+    out = torch.empty((b, 3, h, w), dtype=out_dtype, device=gray_u8.device)
+    _launch(gray_u8, out, means, b, contrast, sharpness)
     return out

@@ -1,6 +1,7 @@
 """The smoke workload of chip_smoke.py and utils/profile_wave.py: the
 slice's engine with seeded random weights, and synthetic letter pages
-(rows of dark word-like bars on white) drawn with numpy from a seed."""
+(rows of dark word-like bars on white) drawn with numpy from a seed; and
+the bf16 agreement rule that chip_smoke.py and the kernel tests share."""
 
 from __future__ import annotations
 
@@ -18,6 +19,29 @@ from ocr_system_tpu_torch.engine.preprocess import PageImage
 # logit by this much makes the map clear the threshold on every run, so
 # every page sends its box through the recognizer.
 PROB_LOGIT_OFFSET = 1.0
+
+# A bf16 kernel output equals its plain version's float32 result rounded to
+# bf16, except by at most one bf16 ulp on at most this share of elements:
+# float32 results that differ within 1e-5 may straddle a rounding boundary.
+BF16_MAX_ULPS = 1.0
+BF16_MAX_SHARE = 1e-3
+
+
+def bf16_disagreement(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """got (bf16) against ref (float32) rounded to bf16: the largest
+    distance in bf16 ulps (of the larger magnitude) and the share of
+    elements that differ at all."""
+    want = ref.float().to(torch.bfloat16).float()
+    have = got.float()
+    mag = torch.maximum(want.abs(), have.abs()).clamp_min(2.0 ** -126)
+    ulps = (have - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(ulps.max()), float((ulps > 0).float().mean())
+
+
+def bf16_agrees(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """The rule above, for tests and chip_smoke.py."""
+    worst, share = bf16_disagreement(got, ref)
+    return worst <= BF16_MAX_ULPS and share <= BF16_MAX_SHARE
 
 
 def build_engine(device, seed: int = 0, **overrides) -> TorchOCREngine:

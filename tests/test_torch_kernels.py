@@ -15,7 +15,12 @@ from ocr_system_tpu.engine.recognizer import _mask_pad
 from ocr_system_tpu.kernels.crop_pallas import crop_boxes_matmul
 from ocr_system_tpu.kernels.preprocess_pallas import fused_enhance as jax_enhance
 from ocr_system_tpu.ops.sampling import crop_boxes_separable
+from ocr_system_tpu_torch.core.config import Settings
+from ocr_system_tpu_torch.engine import detector as detector_mod
+from ocr_system_tpu_torch.engine import recognizer as recognizer_mod
+from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS
 from ocr_system_tpu_torch.kernels import crop, enhance
+from ocr_system_tpu_torch.utils.smoke import bf16_agrees, bf16_disagreement
 
 torch.set_num_threads(1)
 
@@ -68,14 +73,50 @@ def test_fused_enhance_matches_pallas(shape):
 
 
 def test_enhance_gray_matches_repeated_rgb():
-    """The detector's gray entry equals fused_enhance of the gray page
-    repeated three times, written channels-first."""
-    gray = np.random.default_rng(3).random((2, 64, 96)).astype(np.float32)
-    ref = np.asarray(jax_enhance(jnp.asarray(np.repeat(gray[..., None], 3, -1)),
-                                 interpret=True))
-    got = enhance.enhance_gray(torch.from_numpy(gray)).numpy()
+    """The detector's gray entry, on the u8 canvas, equals fused_enhance of
+    the canvas / 255 repeated three times, written channels-first."""
+    gray = np.random.default_rng(3).integers(0, 256, (2, 64, 96), np.uint8)
+    ref = np.asarray(jax_enhance(
+        jnp.asarray(np.repeat(gray[..., None], 3, -1).astype(np.float32) / 255.0),
+        interpret=True))
+    t = torch.from_numpy(gray)
+    got = enhance.enhance_gray(t, enhance.to_unit(t).mean(dim=(1, 2))).numpy()
     assert got.shape == (2, 3, 64, 96)
     assert np.abs(got.transpose(0, 2, 3, 1) - ref).max() < ATOL
+
+
+def _assert_matches(got: torch.Tensor, ref: np.ndarray, atol: float) -> None:
+    """float32 within atol; bf16 under the shared bf16 rule against the
+    reference rounded to bf16."""
+    if got.dtype == torch.bfloat16:
+        ref_t = torch.tensor(ref)
+        assert bf16_agrees(got, ref_t), bf16_disagreement(got, ref_t)
+    else:
+        assert got.dtype == torch.float32
+        assert np.abs(got.numpy() - ref).max() < atol
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 37, 45)])
+def test_enhance_gray_forms_match_pallas(shape, out_dtype):
+    """Both output dtypes of the u8 entry's plain version against the Pallas
+    kernel on the canvas / 255 repeated three times."""
+    gray = np.random.default_rng(4).integers(0, 256, shape, np.uint8)
+    ref = np.asarray(jax_enhance(
+        jnp.asarray(np.repeat(gray[..., None], 3, -1).astype(np.float32) / 255.0),
+        interpret=True)).transpose(0, 3, 1, 2)
+    t = torch.from_numpy(gray)
+    got = enhance.enhance_gray_plain(t, enhance.to_unit(t).mean(dim=(1, 2)), out_dtype)
+    assert got.shape == ref.shape
+    _assert_matches(got, ref, ATOL)
+
+
+def test_fused_enhance_bf16_matches_pallas():
+    imgs = np.random.default_rng(5).random((1, 48, 100, 3)).astype(np.float32)
+    ref = np.asarray(jax_enhance(jnp.asarray(imgs), interpret=True))
+    got = enhance.fused_enhance(torch.from_numpy(imgs), out_dtype=torch.bfloat16)
+    assert got.shape == ref.shape
+    _assert_matches(got, ref, ATOL)
 
 
 def _boxes(P, N, S, H, W, seed, max_h, rows, min_h=8):
@@ -112,6 +153,19 @@ def test_crop_matches_pallas(P, N, S, H, W, seed, max_h, rows):
     assert np.abs(got - _crop_exact(pages, aabbs, wv, H, W)).max() < ATOL
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_crop_forms_match_pallas(out_dtype):
+    pages, aabbs, wv = _boxes(2, 4, 256, 48, 320, 3, 40, 256)
+    ref = np.asarray(crop_boxes_matmul(
+        jnp.asarray(pages), jnp.asarray(aabbs), jnp.asarray(wv), (48, 320),
+        interpret=True,
+    ))
+    got = crop.crop_boxes_plain(torch.from_numpy(pages), torch.from_numpy(aabbs),
+                                torch.from_numpy(wv), (48, 320), out_dtype)
+    assert got.shape == ref.shape
+    _assert_matches(got, ref, CROP_VS_PALLAS_ATOL)
+
+
 def test_crop_tall_boxes_match_separable():
     """Boxes taller than the TPU kernel's 112-row slab (which it cannot
     crop) against the separable gather path: no height bound here. Boxes
@@ -142,11 +196,37 @@ def test_cpu_tensors_take_the_plain_versions():
     """On the CPU the wrappers compute the plain versions and launch (and
     count) nothing."""
     before = (enhance.LAUNCHES.value, crop.LAUNCHES.value)
-    gray = torch.rand(1, 16, 16)
-    assert torch.equal(enhance.enhance_gray(gray), enhance.enhance_gray_plain(gray))
+    gray = torch.randint(0, 256, (1, 16, 16), dtype=torch.uint8)
+    means = enhance.to_unit(gray).mean(dim=(1, 2))
+    assert torch.equal(enhance.enhance_gray(gray, means), enhance.enhance_gray_plain(gray, means))
     pages = torch.randint(0, 255, (1, 16, 16), dtype=torch.uint8)
     aabbs = torch.tensor([[[1.0, 2.0, 12.0, 9.0]]])
     wv = torch.tensor([[60]], dtype=torch.int32)
     assert torch.equal(crop.crop_boxes(pages, aabbs, wv, (48, 80)),
                        crop.crop_boxes_plain(pages, aabbs, wv, (48, 80)))
     assert (enhance.LAUNCHES.value, crop.LAUNCHES.value) == before
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_stages_request_their_compute_dtype(monkeypatch, compute):
+    """Detector and Recognizer ask both kernels for their policy's compute
+    dtype, so no cast pass follows them."""
+    asked = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            asked.setdefault(name, set()).add(out.dtype)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(detector_mod, "enhance_gray", spy("enhance", enhance.enhance_gray))
+    monkeypatch.setattr(recognizer_mod, "crop_boxes", spy("crop", crop.crop_boxes))
+    settings = Settings(**{**SLICE_SETTINGS, "compute_dtype": compute,
+                           "det_image_buckets": (64,), "rec_width_buckets": (80,)})
+    det = detector_mod.Detector(settings, device="cpu")
+    det._forward(det._pack_wire(np.full((1, 64, 64), 200, np.uint8)))
+    rec = recognizer_mod.Recognizer(settings, device="cpu")
+    page = np.full((40, 60, 3), 255, np.uint8)
+    rec.recognize_page(page, np.array([[[2, 2], [30, 2], [30, 14], [2, 14]]], np.float32))
+    assert asked == {"enhance": {getattr(torch, compute)}, "crop": {getattr(torch, compute)}}

@@ -1,8 +1,6 @@
 """The port's ops and host helpers against the JAX package (and against
 OpenCV for the helpers the JAX package delegates to it)."""
 
-import sys
-
 import cv2
 import jax.numpy as jnp
 import numpy as np
@@ -110,11 +108,9 @@ def test_boxes_from_stats_matches_jax():
             assert np.abs(a.quad - b.quad).max() < 1e-4 and a.score == b.score
 
 
-def test_boxes_from_prob_map_matches_jax(monkeypatch):
-    """The component-overflow fallback. The port carries the JAX package's
-    numpy min-area-rect branch, so the reference runs with cv2 hidden (with
-    cv2 it takes cv2.minAreaRect, which differs on thin diagonal strokes)."""
-    monkeypatch.setitem(sys.modules, "cv2", None)
+def test_boxes_from_prob_map_matches_jax():
+    """The component-overflow fallback, against the branch the JAX package
+    serves (cv2.minAreaRect + cv2.boxPoints)."""
     prob = _prob_maps()[0]
     kw = dict(bin_thresh=0.3, box_thresh=0.5, unclip_ratio=2.6)
 
@@ -127,6 +123,38 @@ def test_boxes_from_prob_map_matches_jax(monkeypatch):
     for a, b in zip(ref, got):
         assert a.score == pytest.approx(b.score, abs=1e-6)
         assert np.abs(a.quad - b.quad).max() < 1e-4
+
+
+def _min_area_rect_sets(n_sets=3000):
+    """Half random integer points, half thin diagonal strokes (1-3 px
+    thick) with a few stray points: many rectangles tie in area there."""
+    rng = np.random.default_rng(0)
+    sets = []
+    for k in range(n_sets):
+        if k % 2 == 0:
+            n, span = int(rng.integers(3, 60)), int(rng.integers(2, 80))
+            sets.append(rng.integers(0, span, (n, 2)).astype(np.float32))
+            continue
+        length, thick = int(rng.integers(5, 80)), int(rng.integers(1, 4))
+        step = np.array([rng.choice([-1, 1]) * rng.uniform(0.3, 1.0), rng.uniform(0.3, 1.0)])
+        t = np.arange(length)[:, None]
+        stroke = np.concatenate([np.floor(t * step + [o, 0]) for o in range(thick)])
+        stray = rng.integers(-10, 60, (int(rng.integers(0, 4)), 2))
+        sets.append(np.concatenate([stroke, stray]).astype(np.float32) + 20)
+    return sets
+
+
+def test_min_area_rect_matches_cv2_branch():
+    """The port's min_area_rect equals the JAX package's served branch
+    (cv2.minAreaRect -> cv2.boxPoints -> _order_quad) on every set, ties
+    and 45-degree rectangles included."""
+    worst = 0.0
+    for pts in _min_area_rect_sets():
+        ref_q, ref_w, ref_h = jax_boxes.min_area_rect(pts)
+        got_q, got_w, got_h = boxes.min_area_rect(pts)
+        worst = max(worst, float(np.abs(got_q - ref_q).max()),
+                    abs(got_w - ref_w), abs(got_h - ref_h))
+    assert worst <= 1e-3
 
 
 def test_crops_match_jax():
@@ -163,13 +191,31 @@ def test_ctc_decode_matches_jax():
         np.asarray(r_ids), jax_charset("latin"))
 
 
-@pytest.mark.parametrize("shape,bucket", [((300, 220), 256), ((120, 90), 256), ((256, 200), 256)])
-def test_letterbox_matches_cv2(shape, bucket):
-    page = _text_page(6, *shape)
-    ref, ref_scale = jax_detector._letterbox_host(page, bucket)  # cv2
-    got, scale = detector._letterbox_host(page, bucket)
+_LETTERBOX_CASES = [
+    # text pages (the first three keep their ids)
+    pytest.param((300, 220), 256, "text", id="shape0-256"),
+    pytest.param((120, 90), 256, "text", id="shape1-256"),
+    pytest.param((256, 200), 256, "text", id="shape2-256"),
+] + [
+    # random RGB pages, downscaled and upscaled
+    pytest.param(shape, bucket, "noise", id=f"noise-{shape[0]}x{shape[1]}-{bucket}")
+    for shape, bucket in [((300, 220), 256), ((1100, 850), 960), ((120, 90), 256),
+                          ((1650, 1275), 960), ((500, 377), 1280), ((64, 50), 640)]
+]
+
+
+@pytest.mark.parametrize("shape,bucket,page", _LETTERBOX_CASES)
+def test_letterbox_matches_cv2(shape, bucket, page):
+    """cv2.resize(INTER_LINEAR) + cvtColor, bit for bit: the port's resize
+    is OpenCV's 11-bit fixed point."""
+    if page == "text":
+        img = _text_page(6, *shape)
+    else:
+        img = np.random.default_rng(9).integers(0, 256, (*shape, 3), np.uint8)
+    ref, ref_scale = jax_detector._letterbox_host(img, bucket)  # cv2
+    got, scale = detector._letterbox_host(img, bucket)
     assert scale == ref_scale
-    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    assert np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize("angle", [3.0, -2.5, 12.0])

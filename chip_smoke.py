@@ -3,18 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout, holds each form of each one
-(bf16 and float32 out) against its plain PyTorch version at the shapes the
-serving path gives it (8 pages at the 960 bucket, every rec width) and
-times it cold (the L2 evicted before the launch; the kernels line reports
-this time for the serving bf16 form) and warm, then runs the serving path
-itself with seeded random weights at
-full model width: 160 word quads per page (every width bucket, axis-aligned
-and rotated) through ``Recognizer.recognize_pages``,
-one 8-page wave through ``TorchOCREngine.process_pages``, two waves through
-``PageScheduler.process``. Each kernel wrapper counts its launches; the
-counts are zeroed before each path phase and must be positive after it
-(on the CPU the wrappers run their plain versions and count nothing).
+Builds the CUDA kernels from the checkout and holds each form of each one
+(bf16 and float32 out) against its plain PyTorch version, bit for bit, at
+the shapes the serving path gives it (8 pages at the 960 bucket, every rec
+width), timing it cold (the L2 evicted before the launch; the kernels
+line reports this time for the serving bf16 form) and warm. Then it runs
+the port with the trained weights (``weights/*.npz``) at full model width:
+160 word quads per page (every width bucket, axis-aligned and rotated)
+through ``Recognizer.recognize_pages``; 4 committed forms, one turned,
+through the neural engine (``ocr_engine="jax"``); the 8 committed forms
+through the served hybrid engine from ``get_engine`` (classical and
+neural detection, selection marks, handwriting, glue split) at float32
+and at bf16, each held against the JAX package's outputs on the same
+forms (``assets/smoke_forms_expected.json``); glue split's
+re-recognition of the committed glued-lines page at both dtypes, held
+against the JAX package's glue split of it; the forms twice (two waves)
+through ``PageScheduler.process``; and times the host image operations
+on one form. Each kernel wrapper counts its launches; the counts are
+zeroed before each path phase and must be positive after it (on the CPU
+the wrappers run their plain versions and count nothing).
 
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
@@ -157,7 +164,8 @@ def phase_recognizer(recognizer, n_pages: int, side: int, per_page: int) -> dict
 
 
 def phase_engine(engine, pages, rotated: int | None) -> dict:
-    """One wave through ``TorchOCREngine.process_pages``."""
+    """One wave through ``TorchOCREngine.process_pages``; only page
+    ``rotated`` is deskewed."""
     reset_counts()
     t = time.perf_counter()
     outs = engine.process_pages(pages)
@@ -169,12 +177,133 @@ def phase_engine(engine, pages, rotated: int | None) -> dict:
         turned = not np.array_equal(out.processed_image, page.pixels)
         if turned != (k == rotated):
             raise AssertionError(f"page {k + 1}: deskew {'ran' if turned else 'did not run'}")
-    if engine.detector.device.type == "cuda" and (
+    if engine.recognizer.device.type == "cuda" and (
             launched["enhance"] < 1 + (rotated is not None) or launched["crop"] <= 0):
         raise AssertionError(f"kernels not on the path: {launched}")
     return {"phase": "engine", "pages": len(pages), "words": words,
             "launches": launched, "stage_ms": engine.stage_ms, "wall_s": sec,
             "pages_per_s": len(pages) / sec}
+
+
+def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes: float,
+                 tag: str, leaders_any_length: bool = False,
+                 also: dict[str, list[dict]] | None = None) -> dict:
+    """One wave of forms through the hybrid engine, each page held against
+    the JAX package's record of it: at least ``min_text`` of the JAX words
+    matched by a port word (IoU >= 0.9 and the same text; with
+    ``leaders_any_length``, dot-leader runs of any length alike) and at
+    least ``min_boxes`` by a port box (IoU >= 0.9), its selection marks
+    (count and states) and handwriting boxes (count) equal. Every exact
+    text miss is printed; any shortfall raises. ``also``: further records
+    to report the exact text share against, ungated."""
+    from ocr_system_tpu_torch.utils.smoke import compare_to_expected, page_record, text_share
+
+    reset_counts()
+    t = time.perf_counter()
+    outs = engine.process_pages(pages)
+    sec = time.perf_counter() - t
+    launched = counts()
+    check_outputs(outs, pages)
+    records = [page_record(o) for o in outs]
+    per_page = [compare_to_expected(e, r) for e, r in zip(expected, records)]
+    n = sum(c["words"] for c in per_page)
+    exact = sum(c["matched"] for c in per_page)
+    leaders = sum(c["matched_leaders"] for c in per_page)
+    matched = leaders if leaders_any_length else exact
+    boxes = sum(c["boxes_matched"] for c in per_page)
+    for k, c in enumerate(per_page):
+        for miss in c["misses"]:
+            emit({"phase": tag, "page": k + 1, "miss": miss})
+    row = {"phase": tag, "pages": len(pages), "words_expected": n, "words_matched": exact,
+           "text_share": exact / max(n, 1),
+           "words_matched_leaders_any_length": leaders,
+           "text_share_leaders_any_length": leaders / max(n, 1),
+           "gated": "leaders_any_length" if leaders_any_length else "exact",
+           "min_text_share": min_text,
+           "boxes_matched": boxes, "box_share": boxes / max(n, 1), "min_box_share": min_boxes,
+           "words": sum(len(r["word"]) for r in records),
+           "selection_marks": sum(len(r["selection_mark"]) for r in records),
+           "handwriting": sum(len(r["handwriting"]) for r in records),
+           "marks_ok": [c["marks_ok"] for c in per_page],
+           "handwriting_ok": [c["handwriting_ok"] for c in per_page],
+           "text_share_vs": {k: text_share(v, records) for k, v in (also or {}).items()},
+           "launches": launched, "stage_ms": dict(engine.stage_ms), "wall_s": sec,
+           "pages_per_s": len(pages) / sec}
+    if len(outs) != len(expected) or matched < min_text * n or boxes < min_boxes * n:
+        raise AssertionError(f"{tag}: {matched} (text, {row['gated']}) and {boxes} (boxes) "
+                             f"of {n} words matched, under {min_text:.3f} / {min_boxes:.3f}")
+    if not all(row["marks_ok"]) or not all(row["handwriting_ok"]):
+        raise AssertionError(f"{tag}: marks or handwriting differ: {row}")
+    if engine.recognizer.device.type == "cuda" and (
+            launched["enhance"] <= 0 or launched["crop"] <= 0):
+        raise AssertionError(f"{tag}: kernels not on the path: {launched}")
+    return row
+
+
+def phase_glue(engine, dtype: str) -> dict:
+    """Glue split's re-recognition: the committed glued-lines page, its
+    lines' boxes and glued decodes through the engine's glue split pass
+    (the rec of both halves of each split goes through the crop kernel).
+    The boxes and texts after the pass must equal the JAX package's record
+    at ``dtype``, with at least one split, and the crop kernel must
+    launch."""
+    from ocr_system_tpu_torch.engine.detector import DetResult
+    from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
+    from ocr_system_tpu_torch.engine.recognizer import RecResult
+    from ocr_system_tpu_torch.ops.boxes import DetectedBox
+    from ocr_system_tpu_torch.utils.smoke import glued_lines
+
+    page, quads, texts, expected = glued_lines()
+    want = expected[dtype]
+    det = [DetResult(boxes=[DetectedBox(q.copy(), expected["score"]) for q in quads],
+                     skew_angle=0.0, page=page, gray=rgb_to_gray(page))]
+    recs = [[RecResult(t, expected["confidence"]) for t in texts]]
+    reset_counts()
+    t = time.perf_counter()
+    engine._split_glued(det, recs)
+    sec = time.perf_counter() - t
+    launched = counts()
+    got_texts = [r.text for r in recs[0]]
+    got_quads = [b.quad.tolist() for b in det[0].boxes]
+    row = {"phase": f"glue_{dtype}", "lines": len(quads), "boxes_after": len(got_quads),
+           "texts": got_texts, "texts_equal": got_texts == want["texts"],
+           "quads_equal": got_quads == want["quads"], "launches": launched,
+           "ms": sec * 1e3}
+    if len(got_quads) <= len(quads) or not (row["texts_equal"] and row["quads_equal"]):
+        raise AssertionError(f"glue split differs from the JAX record: {row}, want {want}")
+    if engine.recognizer.device.type == "cuda" and launched["crop"] <= 0:
+        raise AssertionError(f"glue split: the crop kernel did not launch: {launched}")
+    return row
+
+
+def phase_host_ops(page, iters: int = 3) -> dict:
+    """ms per page on this host for the host image operations the hybrid
+    path runs (median of ``iters``): the Gaussian threshold (classical
+    detector), the mean threshold (marks and handwriting), both component
+    orders and the dilations."""
+    from ocr_system_tpu_torch.engine import host_image
+    from ocr_system_tpu_torch.native import cc_label
+
+    gray = host_image.rgb_to_gray(page)
+    mask = host_image.adaptive_threshold(gray, "mean")
+    ops = {
+        "threshold_gaussian": lambda: host_image.adaptive_threshold(gray, "gaussian"),
+        "threshold_mean": lambda: host_image.adaptive_threshold(gray, "mean"),
+        "cc_raster_order": lambda: cc_label.label(mask),
+        "cc_cv2_order": lambda: cc_label.label_cv2(mask),
+        "cc_stats": lambda: cc_label.stats(*cc_label.label(mask)),
+        "dilate_1x7": lambda: host_image.dilate(mask, (1, 7)),
+        "dilate_3x3": lambda: host_image.dilate(mask, (3, 3)),
+    }
+    out = {}
+    for name, fn in ops.items():
+        times = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = sorted(times)[len(times) // 2]
+    return {"phase": "host_ops", "page": list(page.shape), "ms": out}
 
 
 def phase_scheduler(engine, pages) -> dict:
@@ -191,7 +320,7 @@ def phase_scheduler(engine, pages) -> dict:
     if st.retried_pages or st.failed_pages:
         raise AssertionError(f"scheduler fell back: {st}")
     words = check_outputs(outs, pages)
-    if engine.detector.device.type == "cuda" and (
+    if engine.recognizer.device.type == "cuda" and (
             launched["enhance"] < st.waves or launched["crop"] <= 0):
         raise AssertionError(f"kernels not on the path: {launched}")
     return {"phase": "scheduler", "pages": len(pages), "waves": st.waves,
@@ -275,13 +404,17 @@ def agreement(got, ref) -> dict:
 
 def measure_form(form: str, call, plain, ref, nbytes: float, flops: float, flush,
                  plain_iters: int = 5) -> dict:
-    """Check one kernel form against its plain version's float32 result
-    ``ref``, then time it cold and warm beside its plain version."""
+    """Check one kernel form bit for bit against its plain version and
+    against the plain version's float32 result ``ref``, then time it cold
+    and warm beside its plain version."""
     import torch
 
     got = call()
+    want = plain()
     torch.cuda.synchronize()
-    row = {"form": form, **agreement(got, ref)}
+    if not torch.equal(got, want):
+        raise AssertionError(f"{form}: not bit for bit its plain version")
+    row = {"form": form, **agreement(got, ref), "bit_exact": True}
     row["ms"] = cold_ms(call, flush)
     row["warm_ms"] = cuda_ms(call)
     row["plain_ms"] = cuda_ms(plain, plain_iters)
@@ -300,7 +433,7 @@ def kernel_enhance(dev, flush) -> dict:
 
     rng = np.random.default_rng(SEED + 2)
     gray = torch.from_numpy(rng.integers(0, 256, (8, 960, 960), np.uint8)).to(dev)
-    means = enhance.to_unit(gray).mean(dim=(1, 2))
+    means = enhance.gray_means(gray)
     rgb = torch.from_numpy(rng.random((8, 960, 960, 3), np.float32)).to(dev)
     b, h, w = gray.shape
     ref_gray = enhance.enhance_gray_plain(gray, means)
@@ -428,26 +561,68 @@ def main() -> int:
     emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop,
           "elapsed_s": time.perf_counter() - t})
 
-    from ocr_system_tpu_torch.utils.smoke import build_engine, letter_pages
+    from ocr_system_tpu_torch.engine.host_image import rotate_cubic
+    from ocr_system_tpu_torch.engine.preprocess import PageImage
+    from ocr_system_tpu_torch.utils import smoke
 
-    engine = build_engine(dev)  # seeded random weights, full width
+    # ---- phase 2: the trained weights and the committed forms ----
+    forms, expected = smoke.smoke_forms()
+    files = [smoke.TRAINED["det_checkpoint"], smoke.TRAINED["rec_checkpoint"],
+             str(smoke.FORMS), str(smoke.EXPECTED)]
+    emit({"phase": "assets", "mb": {os.path.relpath(f, REPO): os.path.getsize(f) / 1e6
+                                    for f in files},
+          "forms": list(forms.shape), "expected_settings": expected["settings"],
+          "expected_from": f"jax {expected['jax']} on the CPU, {sorted(expected['pages'])}"})
 
-    # ---- phase 2: recognizer on explicit quads ----
+    def as_pages(arrays):
+        return [PageImage(np.ascontiguousarray(p), i + 1) for i, p in enumerate(arrays)]
+
+    # ---- phase 3: recognizer on explicit quads ----
     t = time.perf_counter()
-    rec = phase_recognizer(engine.recognizer, 8, 960, per_page=160)
+    neural = smoke.build_engine(dev, **smoke.NEURAL)
+    rec = phase_recognizer(neural.recognizer, 8, 960, per_page=160)
     emit({**rec, "elapsed_s": time.perf_counter() - t})
 
-    # ---- phase 3: the engine, one wave of 8 letter pages (the main path) ----
+    # ---- phase 4: the neural engine, 4 forms, one turned by 3 degrees ----
     t = time.perf_counter()
-    pages = letter_pages(8, 960, rotated=5, seed=SEED)
-    engine.process_pages(pages[:2])  # first call: cuDNN/cuBLAS set-up
-    eng = phase_engine(engine, pages, rotated=5)
+    arrays = list(forms[1:5])  # (the first form carries a skew of its own)
+    arrays[2] = rotate_cubic(arrays[2], 3.0)
+    neural.process_pages(as_pages(arrays[:2]))  # first call: cuDNN/cuBLAS set-up
+    eng = phase_engine(neural, as_pages(arrays), rotated=2)
     emit({**eng, "elapsed_s": time.perf_counter() - t})
 
-    # ---- phase 4: two waves through the scheduler ----
+    # ---- phase 5: the hybrid engine at float32 against the JAX package ----
     t = time.perf_counter()
-    sch = phase_scheduler(engine, letter_pages(12, 960, rotated=None, seed=SEED + 4))
+    want = expected["pages"]
+    hybrid32 = smoke.build_engine(dev, **expected["settings"], compute_dtype="float32")
+    h32 = phase_hybrid(hybrid32, as_pages(forms), want["float32"], 0.98, 0.98, "hybrid_f32")
+    emit({**h32, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 6: the hybrid engine in bf16, the serving path ----
+    # held against the JAX package's bf16 outputs: every box, and
+    # smoke.BF16_WORD_SHARE of the words with dot-leader runs of any length
+    # alike (bf16 rounding moves a leader's decode by a dot in both
+    # packages: rec_bf16_probe.py)
+    t = time.perf_counter()
+    hybrid = smoke.build_engine(dev, **expected["settings"], compute_dtype="bfloat16")
+    hybrid.process_pages(as_pages(forms[:2]))  # first call: cuDNN/cuBLAS set-up
+    h16 = phase_hybrid(hybrid, as_pages(forms), want["bfloat16"], smoke.BF16_WORD_SHARE, 0.98,
+                       "hybrid_bf16", leaders_any_length=True,
+                       also={"jax_float32": want["float32"]})
+    emit({**h16, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 6b: glue split's re-recognition, at both dtypes ----
+    for engine, dtype in ((hybrid32, "float32"), (hybrid, "bfloat16")):
+        emit(phase_glue(engine, dtype))
+    del hybrid32
+
+    # ---- phase 7: the forms twice, two waves through the scheduler ----
+    t = time.perf_counter()
+    sch = phase_scheduler(hybrid, as_pages(np.concatenate([forms, forms])))
     emit({**sch, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 8: the host image operations on one form ----
+    emit(phase_host_ops(forms[1]))
 
     sources = {
         "enhance": "ocr_system_tpu/kernels/preprocess_pallas.py:117",
@@ -460,7 +635,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/kernels.cu",
             "replaces": sources[name],
-            "launches": eng["launches"][name],
+            "launches": h16["launches"][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -22,8 +22,8 @@ __device__ __forceinline__ float byte_to_float(uint32_t word, int k) {
 }
 
 // Correctly rounded a / b from r = RN(1 / b): one Newton step on the
-// product (Markstein). Checked exhaustively for a in 0..255, b = 255, and
-// on random inputs for the normalisation's divisors.
+// product (Markstein). Checked on random inputs for the normalisation's
+// divisors.
 __device__ __forceinline__ float div_rn(float a, float b, float r) {
   const float q = __fmul_rn(a, r);
   const float e = __fmaf_rn(-q, b, a);
@@ -53,9 +53,10 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float
 //         / norm_std_k,   c = clip(mean + (x - mean) * contrast, 0, 1)
 // with blur5 the separable 5-tap Gaussian (sigma 1), down the columns
 // first, edges replicated by clamping indices at the true image borders,
-// and x = v / 255 for a u8 input v (a true division, as the detector's
-// f = gray_u8 / 255). Every step rounds as the plain PyTorch version does
-// (no contracted multiply-adds; the divisions correctly rounded), so the
+// and x = v * float32(1/255) for a u8 input v (the detector's f =
+// gray_u8 / 255 as XLA compiles it: a multiply by the reciprocal). Every
+// step rounds as the plain PyTorch version does (no contracted
+// multiply-adds; the normalisation's division correctly rounded), so the
 // float32 result is the plain version's bit for bit, and the bf16 output
 // its rounding: near zero, where s - norm_mean cancels, a float32 ulp of
 // difference would span many bf16 ulps.
@@ -98,7 +99,7 @@ struct EnhanceArgs {
 __device__ __forceinline__ void tile_x4(const uint8_t* row, int word, float x[4]) {
   const uint32_t v = reinterpret_cast<const uint32_t*>(row)[word];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) x[k] = div_rn(byte_to_float(v, k), 255.0f, 1.0f / 255.0f);
+  for (int k = 0; k < 4; ++k) x[k] = __fmul_rn(byte_to_float(v, k), 1.0f / 255.0f);
 }
 
 __device__ __forceinline__ void tile_x4(const float* row, int word, float x[4]) {

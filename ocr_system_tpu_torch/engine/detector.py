@@ -29,7 +29,8 @@ from ocr_system_tpu_torch.engine.host_image import (
     rgb_to_gray,
     rotate_cubic,
 )
-from ocr_system_tpu_torch.kernels.enhance import enhance_gray, to_unit
+from ocr_system_tpu_torch.engine.selection_marks import page_components
+from ocr_system_tpu_torch.kernels.enhance import enhance_gray, gray_means, to_unit
 from ocr_system_tpu_torch.models.dbnet import DBNet
 from ocr_system_tpu_torch.ops import image_ops
 from ocr_system_tpu_torch.ops.boxes import (
@@ -54,6 +55,12 @@ class DetResult:
     canvas_stack: torch.Tensor | None = None  # (B, S, S) uint8 gray, on device
     canvas_row: int = -1  # this page's row in canvas_stack
     canvas_scale: float = 1.0  # page coords * scale -> canvas coords
+    # the page's (H, W) uint8 luma, computed once for every host pass
+    # downstream (ink walk, glue split, the mark/handwriting components)
+    gray: np.ndarray | None = None
+    # selection_marks.page_components(gray), computed in the det stage when
+    # selection marks or handwriting detection are on
+    cc: tuple | None = None
 
 
 class Detector:
@@ -90,7 +97,7 @@ class Detector:
         else:
             angles = torch.zeros(b, device=self.device)
         # the kernel reads the u8 canvas and writes the compute dtype
-        x_in = enhance_gray(gray_u8, f.mean(dim=(1, 2)), self.model.policy.compute_dtype)
+        x_in = enhance_gray(gray_u8, gray_means(gray_u8), self.model.policy.compute_dtype)
         prob = self.model.forward_nchw(x_in)
         prob_ds = F.avg_pool2d(prob[:, None], PROB_STRIDE)[:, 0]
         k_top = min(s.det_stats_k, s.max_boxes_per_page)
@@ -157,7 +164,8 @@ class Detector:
 
     def _ink_and_emit(self, results, boxes, pages, i, j, scale, canvas_dev,
                       applied_angle) -> None:
-        """Per-page tail: ink snap/expand, batch quad pad, DetResult."""
+        """Per-page tail: ink snap/expand, batch quad pad, the page's ink
+        components for the mark and handwriting passes, DetResult."""
         s = self.settings
         h, w = pages[i].shape[:2]
         gray_page = rgb_to_gray(pages[i])
@@ -174,6 +182,9 @@ class Detector:
             )
             for b, q in zip(boxes, stack):
                 b.quad[...] = q
+        cc = None
+        if s.enable_selection_marks or s.enable_handwriting_detection:
+            cc = page_components(gray_page)
         results[i] = DetResult(
             boxes=boxes,
             skew_angle=applied_angle,
@@ -181,6 +192,8 @@ class Detector:
             canvas_stack=canvas_dev,
             canvas_row=j,
             canvas_scale=scale,
+            gray=gray_page,
+            cc=cc,
         )
 
     def _pack_wire(self, batch: np.ndarray) -> np.ndarray:

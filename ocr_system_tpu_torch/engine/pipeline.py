@@ -1,18 +1,22 @@
-"""The OCR engine: page pixels -> markdown + layout boxes (port of the
-neural engine of ocr_system_tpu/engine/pipeline.py).
+"""The OCR engine: page pixels -> markdown + layout boxes (port of
+ocr_system_tpu/engine/pipeline.py).
 
 Same service contract as the JAX package: ``OCROutput`` /
 ``DocumentOCRResult``, and layout boxes in Azure's shape
 ``{"type", "content", "confidence", "polygon", "page_number"}``.
 
-This slice of the port runs the neural engine with Latin recognition only:
-script routing and its two rescue passes, glue split, selection marks and
-handwriting are later slices, and ``TorchOCREngine`` refuses settings that
-turn them on (``SLICE_SETTINGS`` lists the values it needs).
+The port runs every OCR serving default but script routing: the neural,
+classical and hybrid detectors (``get_engine``), glue split, selection
+marks, handwriting, tables and reading order, with Latin recognition.
+Script routing, Devanagari and its two rescue passes, and the two options
+that need ``engine/script.py``, are the next slice: ``TorchOCREngine``
+refuses settings that turn them on (``SLICE_SETTINGS`` lists the values it
+needs).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -21,20 +25,25 @@ import numpy as np
 import torch
 
 from ocr_system_tpu_torch.core.config import Settings, get_settings
-from ocr_system_tpu_torch.engine import reading_order
+from ocr_system_tpu_torch.engine import glue_split, reading_order
 from ocr_system_tpu_torch.engine.detector import Detector
+from ocr_system_tpu_torch.engine.handwriting import detect_handwriting
+from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
 from ocr_system_tpu_torch.engine.preprocess import PageImage, load_document
 from ocr_system_tpu_torch.engine.recognizer import Recognizer
+from ocr_system_tpu_torch.engine.selection_marks import (
+    detect_selection_marks,
+    filter_marks_against_words,
+    page_components,
+)
+from ocr_system_tpu_torch.extract.postfix import _cer, clean_key
 from ocr_system_tpu_torch.extract.tables import find_tables
+from ocr_system_tpu_torch.ops.boxes import DetectedBox
 
-# serving defaults that this slice of the port does not run yet, and the
-# values it needs instead
+# settings that this slice of the port does not run yet, and the values it
+# needs instead
 SLICE_SETTINGS = {
-    "ocr_engine": "jax",
     "rec_charset": "latin",
-    "enable_selection_marks": False,
-    "enable_handwriting_detection": False,
-    "det_glue_split": False,
     "det_split_column_gaps": False,
     "rec_tighten_y": False,
 }
@@ -76,8 +85,8 @@ class DocumentOCRResult:
 
 
 class TorchOCREngine:
-    """The neural det+rec engine on the card (the JAX package's
-    ``JaxOCREngine``)."""
+    """The det+rec engine on the card (the JAX package's ``JaxOCREngine``);
+    ``get_engine`` picks its detector."""
 
     name = "torch"
 
@@ -87,7 +96,7 @@ class TorchOCREngine:
     REC_CANVAS_MIN_SCALE = 0.98
 
     def __init__(self, settings: Settings | None = None,
-                 detector: Detector | None = None,
+                 detector=None,
                  recognizer: Recognizer | None = None,
                  device: str | torch.device | None = None):
         self.settings = settings or get_settings()
@@ -101,8 +110,9 @@ class TorchOCREngine:
             )
         self.detector = detector or Detector(self.settings, device=device)
         self.recognizer = recognizer or Recognizer(self.settings, device=device)
-        # wall ms of the last det_stage ("det") and rec_stage ("rec",
-        # "finish") calls
+        # wall ms of the last det_stage ("det", and "det_neural" /
+        # "det_classical" under the hybrid detector) and rec_stage ("rec",
+        # "glue", "finish") calls
         self.stage_ms: dict[str, float] = {}
 
     def process_page(self, page: PageImage) -> OCROutput:
@@ -121,6 +131,7 @@ class TorchOCREngine:
         t = time.perf_counter()
         dets = self.detector.detect_batch([p.pixels for p in pages])
         self.stage_ms["det"] = (time.perf_counter() - t) * 1000.0
+        self.stage_ms.update(getattr(self.detector, "stage_ms", {}))
         return dets
 
     def rec_stage(self, pages: list[PageImage], dets, t0: float | None = None) -> list[OCROutput]:
@@ -131,8 +142,12 @@ class TorchOCREngine:
         ]
         t = time.perf_counter()
         recs_list = self._recognize(dets, quads_list)
+        t_glue = time.perf_counter()
+        self.stage_ms["rec"] = (t_glue - t) * 1000.0
+        if self.settings.det_glue_split:
+            self._split_glued(dets, recs_list)
         t_fin = time.perf_counter()
-        self.stage_ms["rec"] = (t_fin - t) * 1000.0
+        self.stage_ms["glue"] = (t_fin - t_glue) * 1000.0
         if len(pages) <= 1:
             out = [
                 self._finish_page(p, d, r, t0)
@@ -166,9 +181,55 @@ class TorchOCREngine:
         row_recs = self.recognizer.recognize_on_device_stack(stack, row_quads)
         return [row_recs[d.canvas_row] for d in dets]
 
+    def _split_glued(self, dets, recs_list) -> None:
+        """Lexicon-guided re-segmentation of column-merged det boxes (see
+        engine/glue_split.py): the text says '<value><known label>:', the
+        pixels show a column gap -> split the quad there and re-recognize
+        both halves in one batch (from the host pages, as the reference
+        does). A split stays only when its right half still reads as the
+        label."""
+        plans: list[tuple[int, list]] = []
+        for i, (d, recs) in enumerate(zip(dets, recs_list)):
+            if not d.boxes:
+                continue
+            texts = [r.text for r in recs]
+            if not any(":" in t for t in texts):
+                continue
+            gray = d.gray if d.gray is not None else rgb_to_gray(d.page)
+            plan = glue_split.plan_splits(gray, d.boxes, texts)
+            if plan:
+                plans.append((i, plan))
+        if not plans:
+            return
+        rec_pages, rec_quads = [], []
+        for i, plan in plans:
+            rec_pages.append(dets[i].page)
+            rec_quads.append(np.stack(
+                [q for _, lq, rq, _lab in plan for q in (lq, rq)]
+            ).astype(np.float32))
+        half_recs = self.recognizer.recognize_pages(rec_pages, rec_quads)
+        for (i, plan), halves in zip(plans, half_recs):
+            d, recs = dets[i], recs_list[i]
+            for k in range(len(plan) - 1, -1, -1):  # reverse: indices stay valid
+                bi, lq, rq, label = plan[k]
+                lrec, rrec = halves[2 * k], halves[2 * k + 1]
+                if not lrec.text.strip() or not rrec.text.strip():
+                    continue
+                if _cer(label.lower(), clean_key(rrec.text).lower()) > 0.5:
+                    continue  # right half no longer reads as the label
+                score = d.boxes[bi].score
+                d.boxes[bi: bi + 1] = [
+                    DetectedBox(quad=lq, score=score),
+                    DetectedBox(quad=rq, score=score),
+                ]
+                recs[bi: bi + 1] = [lrec, rrec]
+
     def _finish_page(self, page: PageImage, det, recs, t0: float) -> OCROutput:
-        """Reading order, word/line/table layout boxes, markdown and html."""
-        # the overlay image is the DESKEWED page the boxes were found on
+        """Word, line, table, selection-mark and handwriting layout boxes,
+        reading order, markdown and html."""
+        s = self.settings
+        # crops and the overlay image come from the DESKEWED page the boxes
+        # were found on
         pixels = det.page
         blocks = []
         word_boxes: list[dict] = []
@@ -185,6 +246,33 @@ class TorchOCREngine:
         table_boxes = [
             t.to_layout_box() for t in find_tables(word_boxes, page.page_number)
         ]
+        mark_boxes: list[dict] = []
+        cc = det.cc
+        if cc is None and (s.enable_selection_marks or s.enable_handwriting_detection):
+            # detectors without a det-stage luma (the classical one) pass
+            # the page itself
+            cc = page_components(det.gray if det.gray is not None else pixels)
+        if s.enable_selection_marks:
+            mark_boxes = filter_marks_against_words(
+                detect_selection_marks(pixels, page.page_number, cc=cc), word_boxes,
+            )
+        if s.enable_handwriting_detection:
+            hand_boxes = detect_handwriting(pixels, word_boxes, page.page_number, cc=cc)
+            mark_boxes += hand_boxes
+            if hand_boxes:
+                # a det box over a handwriting region decodes to symbol
+                # soup: the handwriting box stands for the region, so the
+                # word leaves the text (markdown, lines) and the layout
+                blocks = [
+                    b for b in blocks
+                    if not _in_boxes(hand_boxes, float(b.quad[:, 0].mean()),
+                                     float(b.quad[:, 1].mean()))
+                ]
+                word_boxes = [
+                    w for w in word_boxes
+                    if not _in_boxes(hand_boxes, sum(w["polygon"][0::2]) / 4.0,
+                                     sum(w["polygon"][1::2]) / 4.0)
+                ]
         lines = reading_order.order_blocks(blocks)
         line_boxes = [
             {
@@ -201,7 +289,7 @@ class TorchOCREngine:
             markdown=reading_order.to_markdown(lines),
             html="<br>\n".join(ln.text for ln in lines),
             json_content={"lines": [ln.text for ln in lines]},
-            layout_boxes=word_boxes + line_boxes + table_boxes,
+            layout_boxes=word_boxes + line_boxes + table_boxes + mark_boxes,
             page_number=page.page_number,
             page_width=float(page.width),
             page_height=float(page.height),
@@ -233,8 +321,58 @@ class TorchOCREngine:
         )
 
 
+def _in_boxes(boxes: list[dict], cx: float, cy: float) -> bool:
+    """Is (cx, cy) inside the axis-aligned extent of any layout box?"""
+    for hb in boxes:
+        hx = hb["polygon"][0::2]
+        hy = hb["polygon"][1::2]
+        if min(hx) <= cx <= max(hx) and min(hy) <= cy <= max(hy):
+            return True
+    return False
+
+
 def combine_markdown(pages_md: list[str]) -> str:
     """'## Page N' separators between pages; a single page passes through."""
     if len(pages_md) <= 1:
         return pages_md[0] if pages_md else ""
     return "\n\n".join(f"## Page {i + 1}\n\n{md}" for i, md in enumerate(pages_md))
+
+
+_ENGINES: dict[tuple, TorchOCREngine] = {}
+_ENGINES_LOCK = threading.Lock()
+
+
+def get_engine(settings: Settings | None = None,
+               device: str | torch.device | None = None) -> TorchOCREngine:
+    """Engine selection by ``settings.ocr_engine`` ("jax": neural,
+    "classical", "hybrid") and a lazy, thread-safe singleton, as the
+    reference's ``get_engine`` (two concurrent first requests build one
+    engine). The reference keys its singleton on the engine name alone; the
+    port keys it on the whole settings and the device, so that a second
+    configuration in one process gets its own engine."""
+    s = settings or get_settings()
+    key = (s.ocr_engine, str(device), repr(s))
+    engine = _ENGINES.get(key)
+    if engine is None:
+        with _ENGINES_LOCK:
+            engine = _ENGINES.get(key)
+            if engine is None:
+                engine = _ENGINES[key] = _build_engine(s.ocr_engine, s, device)
+    return engine
+
+
+def _build_engine(key: str, s: Settings, device) -> TorchOCREngine:
+    if key == "jax":
+        return TorchOCREngine(s, device=device)
+    if key == "classical":
+        # classical CV detection + neural recognition: the no-weights
+        # fallback engine
+        from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
+
+        return TorchOCREngine(s, detector=ClassicalDetector(s), device=device)
+    if key == "hybrid":
+        # neural ∪ classical detection (engine/hybrid_detector.py)
+        from ocr_system_tpu_torch.engine.hybrid_detector import HybridDetector
+
+        return TorchOCREngine(s, detector=HybridDetector(s, device=device), device=device)
+    raise ValueError(f"unknown or unported OCR engine {key!r}")

@@ -22,6 +22,7 @@ from ocr_system_tpu_torch.core.dtypes import DTypePolicy, resolve_device
 from ocr_system_tpu_torch.core.weights import load_weights
 from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
 from ocr_system_tpu_torch.kernels.crop import crop_boxes
+from ocr_system_tpu_torch.kernels.enhance import to_unit
 from ocr_system_tpu_torch.models.charsets import Charset, get_charset
 from ocr_system_tpu_torch.models.recognizer import SVTRRecognizer
 from ocr_system_tpu_torch.ops import ctc
@@ -111,8 +112,10 @@ class Recognizer:
 
     @torch.inference_mode()
     def _run(self, stack_dev: torch.Tensor, quads: np.ndarray, w_valid: np.ndarray,
-             bucket: int, axis_aligned: bool):
-        """One bucket group: (P, N, 4, 2) quads -> device (ids, conf)."""
+             bucket: int, axis_aligned: bool, rows: list[int]):
+        """One bucket group: (P, N, 4, 2) quads -> device (ids, conf).
+        ``rows``: the stack rows that hold this group's quads (the others
+        carry only padding crops, whose results are dropped)."""
         h = self.settings.rec_image_height
         n_pages, n_per_page = w_valid.shape
         widths = torch.from_numpy(w_valid).to(self.device)
@@ -123,11 +126,8 @@ class Recognizer:
             crops = crop_boxes(stack_dev, torch.from_numpy(aabbs).to(self.device),
                                widths, (h, bucket), self.model.policy.compute_dtype)
         else:
-            q = torch.from_numpy(quads).to(self.device)
-            pages = stack_dev.float() / 255.0
-            crops = torch.cat(
-                [crop_quads(pages[k], q[k], (h, bucket)) for k in range(n_pages)]
-            )
+            crops = quad_crops(stack_dev, torch.from_numpy(quads).to(self.device),
+                               rows, (h, bucket))
             crops = _mask_pad(crops, widths.reshape(-1))
         crops = crops[:, None].expand(-1, 3, -1, -1)
         logits, lengths = self.model.forward_nchw(crops, widths.reshape(-1))
@@ -178,7 +178,8 @@ class Recognizer:
                     wv = int(np.clip(tw, 16, bucket))
                     q[k, j] = _extend_quad(quad, bucket / wv)
                     w_valid[k, j] = wv
-            ids, conf = self._run(stack_dev, q, w_valid, bucket, axis_aligned)
+            rows = [k for k, group in enumerate(groups) if group]
+            ids, conf = self._run(stack_dev, q, w_valid, bucket, axis_aligned, rows)
             pending.append((n_per_page, ids, conf))
 
         for ((bucket, axis_aligned), groups), (n_per_page, ids, conf) in zip(
@@ -192,6 +193,19 @@ class Recognizer:
                     results[row_targets[k]][q_i] = RecResult(
                         text=texts[flat_i], confidence=float(confs[flat_i])
                     )
+
+
+def quad_crops(stack_dev: torch.Tensor, quads: torch.Tensor, rows: list[int],
+               out_shape: tuple[int, int]) -> torch.Tensor:
+    """(P, S, S) u8 stack, (P, N, 4, 2) quads -> (P * N, h, w) float32 crops
+    of the listed rows; the other rows' crops stay zero. Each row goes to
+    [0, 1] by ``to_unit``, as the JAX package's jitted ``gray / 255.0``
+    rounds, on the CPU and the card alike."""
+    n_pages, n_per_page = quads.shape[:2]
+    crops = torch.zeros((n_pages, n_per_page, *out_shape), device=stack_dev.device)
+    for k in rows:
+        crops[k] = crop_quads(to_unit(stack_dev[k]), quads[k], out_shape)
+    return crops.reshape(-1, *out_shape)
 
 
 def _fill(results: list[list[RecResult | None]]) -> list[list[RecResult]]:

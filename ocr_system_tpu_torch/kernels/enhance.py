@@ -50,11 +50,29 @@ def _norm(dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def to_unit(gray_u8: torch.Tensor) -> torch.Tensor:
-    """u8 -> float32 in [0, 1] by a true division, the kernel's (and the
-    JAX detector's) ``gray_u8 / 255.0``. The divisor is a tensor: PyTorch's
-    CUDA division by a Python scalar multiplies by its reciprocal, which
-    rounds 126 of the 256 values differently."""
-    return gray_u8.float() / torch.tensor(255.0, device=gray_u8.device)
+    """u8 -> float32 in [0, 1] as the JAX detector's ``gray_u8 / 255.0``
+    rounds under ``jax.jit``: XLA turns the division by a constant into a
+    multiply by ``float32(1/255)``, which differs from a true division on
+    126 of the 256 values. The factor is a float32 tensor so that the CPU
+    and CUDA paths both multiply by it."""
+    return gray_u8.float() * torch.tensor(1.0 / 255.0, dtype=torch.float32,
+                                          device=gray_u8.device)
+
+
+def luma_means(images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) float32 in [0, 1] -> (B,) means of their luma, as
+    ``fused_enhance`` computes them. For a gray page pass its three
+    channels (``unit[..., None].expand(-1, -1, -1, 3)``): the luma weights'
+    rounding is part of the mean the JAX detector gives the kernel."""
+    luma = 0.299 * images[..., 0] + 0.587 * images[..., 1] + 0.114 * images[..., 2]
+    return luma.mean(dim=(1, 2))
+
+
+def gray_means(gray_u8: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 canvases -> the (B,) means that ``enhance_gray``
+    takes: the luma means of ``to_unit(gray_u8)`` repeated three times."""
+    unit = to_unit(gray_u8)[..., None]
+    return luma_means(unit.expand(*unit.shape[:-1], 3))
 
 
 def fused_enhance_plain(images: torch.Tensor, contrast: float = CONTRAST,
@@ -62,8 +80,7 @@ def fused_enhance_plain(images: torch.Tensor, contrast: float = CONTRAST,
                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of ``fused_enhance``."""
     _build.check_out_dtype(out_dtype, "fused_enhance")
-    luma = 0.299 * images[..., 0] + 0.587 * images[..., 1] + 0.114 * images[..., 2]
-    means = luma.mean(dim=(1, 2))
+    means = luma_means(images)
     s = _enhance_planes(images.permute(0, 3, 1, 2), means, contrast, sharpness)
     nm, ns = _norm(images.dtype, images.device)
     return ((s.permute(0, 2, 3, 1) - nm) / ns).to(out_dtype).contiguous()
@@ -123,8 +140,7 @@ def fused_enhance(images: torch.Tensor, contrast: float = CONTRAST,
     _check_cuda(images, torch.float32, 4, "fused_enhance")
     if images.shape[-1] != 3:
         raise ValueError(f"fused_enhance: expected 3 channels, got {images.shape}")
-    luma = 0.299 * images[..., 0] + 0.587 * images[..., 1] + 0.114 * images[..., 2]
-    means = luma.mean(dim=(1, 2)).contiguous()
+    means = luma_means(images).contiguous()
     planes = images.permute(0, 3, 1, 2).contiguous()
     out = torch.empty(planes.shape, dtype=out_dtype, device=images.device)
     _launch(planes, out, means, planes.shape[0] * 3, contrast, sharpness)
@@ -136,10 +152,9 @@ def enhance_gray(gray_u8: torch.Tensor, means: torch.Tensor,
                  contrast: float = CONTRAST,
                  sharpness: float = SHARPNESS) -> torch.Tensor:
     """The detector's entry: (B, H, W) uint8 gray canvases and their (B,)
-    means of ``to_unit(gray_u8)`` -> (B, 3, H, W) normalised model input in
-    ``out_dtype`` (the three channels differ only in their normalisation).
-    Equal to ``fused_enhance`` of the gray page / 255 repeated three
-    times, up to the luma weights' rounding of the mean."""
+    ``gray_means`` -> (B, 3, H, W) normalised model input in ``out_dtype``
+    (the three channels differ only in their normalisation). Equal to
+    ``fused_enhance`` of ``to_unit`` of the page repeated three times."""
     if gray_u8.device.type == "cpu":
         return enhance_gray_plain(gray_u8, means, out_dtype, contrast, sharpness)
     _build.check_out_dtype(out_dtype, "enhance_gray")

@@ -2,11 +2,10 @@
 
     python3 -m ocr_system_tpu_torch.utils.profile_wave [--out DIR]
 
-Runs ``TorchOCREngine.process_pages`` on the 8 letter pages that
-chip_smoke.py drives (seeded random weights, one page deskewed), once to
-warm up and once under both ``cProfile`` (host: cumulative time per
-function) and
-``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
+Runs the served hybrid engine's ``process_pages`` (trained weights, bf16)
+on the 8 committed smoke forms that chip_smoke.py drives, once to warm up
+and once under both ``cProfile`` (host: cumulative time per function)
+and ``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
 with the wall time, the device's busy time and idle share over the wave,
 and the top host functions and device kernels; writes the full tables to
 DIR (default ``build/profile_wave``). Needs a CUDA device.
@@ -28,19 +27,28 @@ import torch
 # host functions worth naming in the breakdown (module path fragment,
 # function name)
 _HOST = (
-    ("detector.py", "detect_batch"),
-    ("detector.py", "_letterbox_host"),
-    ("detector.py", "_rotate_host"),
-    ("detector.py", "_forward"),
+    ("engine/detector.py", "detect_batch"),
+    ("engine/detector.py", "_letterbox_host"),
+    ("engine/detector.py", "_rotate_host"),
+    ("engine/detector.py", "_forward"),
     ("device_boxes.py", "propagate_labels"),
     ("device_boxes.py", "component_stats"),
     ("boxes.py", "boxes_from_stats"),
     ("boxes.py", "boxes_from_prob_map"),
-    ("detector.py", "_ink_and_emit"),
-    ("detector.py", "_ink_snap"),
+    ("engine/detector.py", "_ink_and_emit"),
+    ("engine/detector.py", "_ink_snap"),
     ("image_ops.py", "estimate_skew_angle"),
     ("dbnet.py", "forward_nchw"),
     ("recognizer.py", "_rec_on_stack"),
+    ("classical_detector.py", "_detect_one"),
+    ("hybrid_detector.py", "detect_batch"),
+    ("host_image.py", "adaptive_threshold"),
+    ("cc_label.py", "label"),
+    ("cc_label.py", "label_cv2"),
+    ("selection_marks.py", "page_components"),
+    ("selection_marks.py", "detect_selection_marks"),
+    ("handwriting.py", "detect_handwriting"),
+    ("pipeline.py", "_split_glued"),
     ("pipeline.py", "_finish_page"),
 )
 
@@ -62,10 +70,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_wave: no CUDA device", file=sys.stderr)
         return 1
-    from ocr_system_tpu_torch.utils.smoke import build_engine, letter_pages
+    from ocr_system_tpu_torch.engine.preprocess import PageImage
+    from ocr_system_tpu_torch.utils.smoke import build_engine, smoke_forms
 
-    engine = build_engine("cuda")
-    pages = letter_pages(8, 960, rotated=5, seed=1234)
+    engine = build_engine("cuda", ocr_engine="hybrid")
+    pages = [PageImage(p, i + 1) for i, p in enumerate(smoke_forms()[0])]
     engine.process_pages(pages)  # warm-up: cuDNN/cuBLAS set-up, kernel build
     torch.cuda.synchronize()
 

@@ -1,24 +1,41 @@
 """The smoke workload of chip_smoke.py and utils/profile_wave.py: the
-slice's engine with seeded random weights, and synthetic letter pages
-(rows of dark word-like bars on white) drawn with numpy from a seed; and
-the bf16 agreement rule that chip_smoke.py and the kernel tests share."""
+port's engines with the trained weights (``weights/*.npz``, written by
+export_torch_weights.py), the committed synthetic forms and glued-lines
+page and the JAX package's outputs on them (``assets/``), and synthetic
+pages and checkboxes drawn with numpy from a seed; the record and
+comparison of a page's layout against those outputs; and the bf16
+agreement rules that chip_smoke.py and the tests share."""
 
 from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ocr_system_tpu_torch.core.config import Settings
-from ocr_system_tpu_torch.engine.host_image import rotate_cubic
-from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
-from ocr_system_tpu_torch.engine.preprocess import PageImage
+from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
+from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine, get_engine
 
-# Random weights leave DBNet's probability map flat at ~sigmoid(0) = 0.5,
-# on det_box_thresh, so whether a page yields its (page-sized) component
-# as a box would be a coin flip between runs. Offsetting the head's output
-# logit by this much makes the map clear the threshold on every run, so
-# every page sends its box through the recognizer.
-PROB_LOGIT_OFFSET = 1.0
+PACKAGE = Path(__file__).resolve().parents[1]
+TRAINED = {
+    "det_checkpoint": str(PACKAGE / "weights" / "det.npz"),
+    "rec_checkpoint": str(PACKAGE / "weights" / "rec_latin.npz"),
+}
+# the neural engine alone (no classical pass, marks, handwriting or glue
+# split)
+NEURAL = {
+    "ocr_engine": "jax",
+    "enable_selection_marks": False,
+    "enable_handwriting_detection": False,
+    "det_glue_split": False,
+}
+FORMS = PACKAGE / "assets" / "smoke_forms.npz"
+EXPECTED = PACKAGE / "assets" / "smoke_forms_expected.json"
+GLUED = PACKAGE / "assets" / "glued_lines.npz"
+GLUED_EXPECTED = PACKAGE / "assets" / "glued_lines_expected.json"
 
 # A bf16 kernel output equals its plain version's float32 result rounded to
 # bf16, except by at most one bf16 ulp on at most this share of elements:
@@ -44,14 +61,28 @@ def bf16_agrees(got: torch.Tensor, ref: torch.Tensor) -> bool:
     return worst <= BF16_MAX_ULPS and share <= BF16_MAX_SHARE
 
 
-def build_engine(device, seed: int = 0, **overrides) -> TorchOCREngine:
-    """The slice's engine (serving defaults + SLICE_SETTINGS + overrides)
-    with seeded random DBNet and SVTR weights at full width."""
-    settings = Settings(**{**SLICE_SETTINGS, **overrides})
-    engine = TorchOCREngine(settings, device=device)
-    with torch.no_grad():
-        engine.detector.model.prob_head.up2.bias += PROB_LOGIT_OFFSET
-    return engine
+def build_engine(device, **overrides) -> TorchOCREngine:
+    """``get_engine`` of the slice's settings (serving defaults +
+    SLICE_SETTINGS + overrides) with the trained weights."""
+    return get_engine(Settings(**{**SLICE_SETTINGS, **TRAINED, **overrides}), device=device)
+
+
+def smoke_forms() -> tuple[np.ndarray, dict]:
+    """The committed forms, (N, 960, 960, 3) uint8, and the JAX package's
+    outputs on them (their settings, and a page_record per form)."""
+    with np.load(FORMS) as z:
+        pages = z["pages"]
+    return pages, json.loads(EXPECTED.read_text())
+
+
+def glued_lines() -> tuple[np.ndarray, np.ndarray, list[str], dict]:
+    """The committed glued-lines page, (H, W, 3) uint8, its lines' (N, 4, 2)
+    quads and glued decodes, and the JAX package's glue split of them per
+    compute dtype (the quads and texts after the pass, and the det score
+    and rec confidence the boxes carried in)."""
+    with np.load(GLUED) as z:
+        page, quads, texts = z["page"], z["quads"], [str(t) for t in z["texts"]]
+    return page, quads, texts, json.loads(GLUED_EXPECTED.read_text())
 
 
 def draw_page(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -67,12 +98,130 @@ def draw_page(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     return img
 
 
-def letter_pages(n: int, h: int, rotated: int | None, seed: int):
-    """n letter-aspect (8.5 x 11) pages of height h; page ``rotated`` is
-    turned by 3 degrees so the deskew re-pass runs."""
-    rng = np.random.default_rng(seed)
-    w = int(round(h * 8.5 / 11.0))
-    pages = [draw_page(rng, h, w) for _ in range(n)]
-    if rotated is not None:
-        pages[rotated] = rotate_cubic(pages[rotated], 3.0)
-    return [PageImage(p, i + 1) for i, p in enumerate(pages)]
+def draw_checkboxes(page: np.ndarray, rng: np.random.Generator, n: int) -> np.ndarray:
+    """A copy of an (H, W, 3) uint8 page with n checkbox outlines drawn in
+    blank places (2-px dark squares of 1/50 of the page side, every other
+    one checked with a cross), so the selection-mark pass has marks to
+    find."""
+    from scipy import ndimage
+
+    out = page.copy()
+    h, w = page.shape[:2]
+    side = max(round(max(h, w) / 50), 10)
+    margin = side // 2
+    gray = rgb_to_gray(page)
+    # top-left corners whose box and margin lie on blank page
+    blank = ndimage.minimum_filter(gray, size=side + 2 * margin, mode="constant", cval=0) > 200
+    ys, xs = np.nonzero(blank[: h - side - margin, : w - side - margin])
+    taken = np.zeros((h, w), bool)
+    for k in range(n):
+        free = ~taken[ys, xs]
+        if not free.any():
+            break
+        j = int(rng.choice(np.flatnonzero(free)))
+        y0, x0 = int(ys[j]) - side // 2, int(xs[j]) - side // 2
+        y0, x0 = max(y0, 0), max(x0, 0)
+        box = out[y0: y0 + side, x0: x0 + side]
+        box[:2], box[-2:], box[:, :2], box[:, -2:] = 30, 30, 30, 30
+        if k % 2 == 0:  # checked: a cross inside the outline
+            for t in range(4, side - 4):
+                box[t, t - 1: t + 1] = 30
+                box[t, side - t - 1: side - t + 1] = 30
+        taken[max(y0 - side, 0): y0 + 2 * side, max(x0 - side, 0): x0 + 2 * side] = True
+    return out
+
+
+LAYOUT_TYPES = ("word", "line", "table", "selection_mark", "handwriting")
+
+
+def page_record(out) -> dict:
+    """An OCROutput (of either package) as the JSON record that the
+    committed smoke expectations hold: its layout boxes by type (polygon,
+    content, and a mark's state) and its markdown."""
+    rec: dict = {"page_number": out.page_number, "markdown": out.markdown}
+    for typ in LAYOUT_TYPES:
+        rec[typ] = [
+            {"polygon": [float(v) for v in b["polygon"]],
+             "content": b.get("content", ""),
+             **({"state": b["state"]} if "state" in b else {})}
+            for b in out.layout_boxes if b["type"] == typ
+        ]
+    return rec
+
+
+def box_iou(a: list[float], b: list[float]) -> float:
+    """IoU of two flat 8-number polygons' axis-aligned extents."""
+    ax, ay, bx, by = a[0::2], a[1::2], b[0::2], b[1::2]
+    ix = max(0.0, min(max(ax), max(bx)) - max(min(ax), min(bx)))
+    iy = max(0.0, min(max(ay), max(by)) - max(min(ay), min(by)))
+    inter = ix * iy
+    area_a = (max(ax) - min(ax)) * (max(ay) - min(ay))
+    area_b = (max(bx) - min(bx)) * (max(by) - min(by))
+    return inter / max(area_a + area_b - inter, 1e-9)
+
+
+# bf16 serving against the JAX package's bf16 on the same pages: at least
+# this share of its words matched, dot-leader runs compared regardless of
+# length (``same_text(..., leaders_any_length=True)``). A run of dots
+# decodes one dot longer or shorter under small changes of bf16 rounding:
+# the JAX package's own bf16 texts of the committed forms move on up to
+# 11% of the words when only XLA's CPU options change, nearly all of them
+# dot leaders (rec_bf16_probe.py).
+BF16_WORD_SHARE = 0.98
+_LEADER = re.compile(r"\.{2,}")
+
+
+def same_text(a: str, b: str, leaders_any_length: bool = False) -> bool:
+    """Whether two recognised texts agree; with ``leaders_any_length``,
+    every run of two or more dots counts as one dot leader whatever its
+    length."""
+    if leaders_any_length:
+        return _LEADER.sub("..", a) == _LEADER.sub("..", b)
+    return a == b
+
+
+def _match_words(expected: list[dict], got: list[dict], leaders_any_length: bool):
+    """Greedy one-to-one matching: each expected word takes the free port
+    word of the highest IoU; it matches if that IoU is >= 0.9 and the texts
+    agree. Returns (matched, misses)."""
+    free = list(got)
+    matched, misses = 0, []
+    for w in expected:
+        best = max(range(len(free)), key=lambda k: box_iou(w["polygon"], free[k]["polygon"]),
+                   default=None)
+        if (best is not None and box_iou(w["polygon"], free[best]["polygon"]) >= 0.9
+                and same_text(free[best]["content"], w["content"], leaders_any_length)):
+            matched += 1
+            free.pop(best)
+        else:
+            misses.append({"expected": w, "got": None if best is None else free[best]})
+    return matched, misses
+
+
+def compare_to_expected(expected: dict, got: dict) -> dict:
+    """One page's record against its expectation: the expected words that a
+    port word with IoU >= 0.9 and the same text matches (each port word
+    used once; ``matched``, and ``matched_leaders`` with dot-leader runs of
+    any length alike), the expected words that a port box with IoU >= 0.9
+    covers whatever its text, and whether the selection marks (count and
+    states, in order) and the handwriting boxes (count) agree. Text misses
+    (exact texts) are listed."""
+    matched, misses = _match_words(expected["word"], got["word"], False)
+    matched_leaders, _ = _match_words(expected["word"], got["word"], True)
+    boxes = sum(
+        any(box_iou(w["polygon"], g["polygon"]) >= 0.9 for g in got["word"])
+        for w in expected["word"]
+    )
+    marks_ok = ([m["state"] for m in expected["selection_mark"]]
+                == [m["state"] for m in got["selection_mark"]])
+    hand_ok = len(expected["handwriting"]) == len(got["handwriting"])
+    return {"words": len(expected["word"]), "matched": matched,
+            "matched_leaders": matched_leaders, "boxes_matched": boxes,
+            "misses": misses, "marks_ok": marks_ok, "handwriting_ok": hand_ok}
+
+
+def text_share(expected: list[dict], got: list[dict]) -> float:
+    """The share of the expected pages' words that ``got`` matches (box
+    and text), over all pages."""
+    rows = [compare_to_expected(e, g) for e, g in zip(expected, got)]
+    return sum(r["matched"] for r in rows) / max(sum(r["words"] for r in rows), 1)

@@ -94,3 +94,43 @@ def test_detector_refuses_unported_det_settings(update):
 
     with pytest.raises(ValueError, match="port"):
         Detector(Settings(**{**SLICE_SETTINGS, **update}), device="cpu")
+
+
+def test_engine_accepts_every_serving_default_but_script_routing():
+    from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
+
+    assert SLICE_SETTINGS == {"rec_charset": "latin", "det_split_column_gaps": False,
+                              "rec_tighten_y": False}
+    s = Settings(rec_charset="latin")
+    assert (s.ocr_engine, s.enable_selection_marks, s.enable_handwriting_detection,
+            s.det_glue_split) == ("hybrid", True, True, True)
+    TorchOCREngine(s, device="cpu")
+    for key in ("det_split_column_gaps", "rec_tighten_y"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            TorchOCREngine(Settings(rec_charset="latin", **{key: True}), device="cpu")
+
+
+def test_get_engine_builds_each_engine_once():
+    """"jax", "classical" and "hybrid" get their detectors; concurrent first
+    calls with one configuration build one engine; another configuration
+    gets its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
+    from ocr_system_tpu_torch.engine.detector import Detector
+    from ocr_system_tpu_torch.engine.hybrid_detector import HybridDetector
+    from ocr_system_tpu_torch.engine.pipeline import get_engine
+
+    small = dict(rec_charset="latin", det_image_buckets=(64,), rec_width_buckets=(80,))
+    for name, kind in (("jax", Detector), ("classical", ClassicalDetector),
+                       ("hybrid", HybridDetector)):
+        s = Settings(ocr_engine=name, **small)
+        with ThreadPoolExecutor(4) as ex:
+            engines = list(ex.map(lambda _: get_engine(s, device="cpu"), range(4)))
+        assert all(e is engines[0] for e in engines)
+        assert type(engines[0].detector) is kind
+    other = get_engine(Settings(ocr_engine="hybrid", compute_dtype="float32", **small),
+                       device="cpu")
+    assert other is not get_engine(Settings(ocr_engine="hybrid", **small), device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        get_engine(Settings(ocr_engine="fake", **small), device="cpu")

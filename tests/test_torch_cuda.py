@@ -40,7 +40,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 def test_enhance_kernel_matches_plain(cuda, shape, out_dtype):
     rng = np.random.default_rng(0)
     gray = torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(cuda)
-    means = enhance.to_unit(gray).mean(dim=(1, 2))
+    means = enhance.gray_means(gray)
     rgb = torch.from_numpy(rng.random((*shape, 3), np.float32)).to(cuda)
     before = enhance.LAUNCHES.value
     got = enhance.enhance_gray(gray, means, out_dtype)

@@ -1,6 +1,8 @@
 """The card machine's package list as a test: the port and chip_smoke.py
 import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, safetensors
-and the JAX package all refused."""
+and the JAX package all refused: every module of the port imports, and
+chip_smoke.py's phases run at a tiny size on the committed weights and
+forms, the hybrid engine's and the glue split's among them."""
 
 import ast
 import os
@@ -36,15 +38,38 @@ for info in pkgutil.walk_packages(ocr_system_tpu_torch.__path__, "ocr_system_tpu
     importlib.import_module(info.name)
 import chip_smoke as cs
 
-from ocr_system_tpu_torch.utils.smoke import build_engine, letter_pages
-engine = build_engine("cpu", det_image_buckets=(128,), rec_width_buckets=(80, 160),
-                      rec_batch_size=8, det_batch_size=4)
-rec = cs.phase_recognizer(engine.recognizer, 2, 128, per_page=24)
-eng = cs.phase_engine(engine, letter_pages(4, 128, rotated=1, seed=1), rotated=1)
-sch = cs.phase_scheduler(engine, letter_pages(6, 128, rotated=None, seed=2))
+from ocr_system_tpu_torch.engine.host_image import resize_linear, rotate_cubic
+from ocr_system_tpu_torch.engine.preprocess import PageImage
+from ocr_system_tpu_torch.utils import smoke
+
+def pages(arrays):
+    return [PageImage(a, i + 1) for i, a in enumerate(arrays)]
+
+# the committed forms and weights, at a tiny size
+forms, expected = smoke.smoke_forms()
+small = [resize_linear(f, (320, 320)) for f in forms[1:4]]
+tiny = dict(det_image_buckets=(320,), rec_width_buckets=(80, 160), rec_batch_size=8,
+            det_batch_size=2)
+neural = smoke.build_engine("cpu", **smoke.NEURAL, **tiny)
+rec = cs.phase_recognizer(neural.recognizer, 2, 128, per_page=24)
+turned = list(small)
+turned[1] = rotate_cubic(turned[1], 3.0)
+eng = cs.phase_engine(neural, pages(turned), rotated=1)
+hybrid = smoke.build_engine("cpu", **{**expected["settings"], **tiny})
+# the hybrid phase's checks, held against this engine's own first run
+first = [smoke.page_record(o) for o in hybrid.process_pages(pages(small))]
+hyb = cs.phase_hybrid(hybrid, pages(small), first, 1.0, 1.0, "hybrid", also={"itself": first})
+sch = cs.phase_scheduler(hybrid, pages(small + small[:1]))
+host = cs.phase_host_ops(small[0], iters=1)
+# glue split at the served rec settings, against the committed JAX record
+glue = cs.phase_glue(smoke.build_engine("cpu", **smoke.NEURAL), "bfloat16")
 assert sch["waves"] == 2 and sch["retried_pages"] == 0, sch
-assert eng["words"] == 4 and sch["words"] == 6, (eng, sch)
-print("OK", rec["launches"], eng["launches"], sch["launches"])
+assert eng["words"] > 0 and hyb["words"] == hyb["words_matched"] > 0, (eng, hyb)
+assert hyb["text_share_vs"] == {"itself": 1.0}, hyb
+assert set(hyb["stage_ms"]) >= {"det_neural", "det_classical", "glue", "finish"}, hyb
+assert len(host["ms"]) == 7, host
+assert glue["boxes_after"] > glue["lines"] and glue["texts_equal"], glue
+print("OK", rec["launches"], eng["launches"], hyb["launches"], sch["launches"])
 ''' % (BLOCKED,)
 
 

@@ -33,6 +33,24 @@ ATOL = 1e-5
 CROP_VS_PALLAS_ATOL = 1e-4
 
 
+# the JAX detector's u8 -> [0, 1] step as XLA compiles it
+_jax_unit = jax.jit(lambda g: g.astype(jnp.float32) / 255.0)
+
+
+def test_to_unit_equals_jitted_jax_division():
+    """to_unit is the jitted JAX ``/ 255.0`` bit for bit on every u8 value
+    (a true division differs on 126 of them, among them the 4-bit wire
+    levels 51, 102, 119, 204, 221 and 238)."""
+    g = np.arange(256, dtype=np.uint8)
+    ref = np.asarray(_jax_unit(jnp.asarray(g)))
+    got = enhance.to_unit(torch.from_numpy(g)).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    true_div = (g.astype(np.float32) / np.float32(255.0)).view(np.uint32)
+    differs = np.flatnonzero(true_div != ref.view(np.uint32))
+    assert len(differs) == 126 and {51, 102, 119, 204, 221, 238} <= set(differs)
+
+
 def _crop_exact(pages, aabbs, wv, H, W):
     """float64 bilinear evaluation at the kernel's float32 coordinates."""
     P, rows, cols = pages.shape
@@ -74,13 +92,14 @@ def test_fused_enhance_matches_pallas(shape):
 
 def test_enhance_gray_matches_repeated_rgb():
     """The detector's gray entry, on the u8 canvas, equals fused_enhance of
-    the canvas / 255 repeated three times, written channels-first."""
+    the canvas / 255 (as the JAX detector computes it under jit) repeated
+    three times, written channels-first."""
     gray = np.random.default_rng(3).integers(0, 256, (2, 64, 96), np.uint8)
     ref = np.asarray(jax_enhance(
-        jnp.asarray(np.repeat(gray[..., None], 3, -1).astype(np.float32) / 255.0),
+        jnp.repeat(_jax_unit(jnp.asarray(gray))[..., None], 3, -1),
         interpret=True))
     t = torch.from_numpy(gray)
-    got = enhance.enhance_gray(t, enhance.to_unit(t).mean(dim=(1, 2))).numpy()
+    got = enhance.enhance_gray(t, enhance.gray_means(t)).numpy()
     assert got.shape == (2, 3, 64, 96)
     assert np.abs(got.transpose(0, 2, 3, 1) - ref).max() < ATOL
 
@@ -100,15 +119,54 @@ def _assert_matches(got: torch.Tensor, ref: np.ndarray, atol: float) -> None:
 @pytest.mark.parametrize("shape", [(2, 64, 96), (1, 37, 45)])
 def test_enhance_gray_forms_match_pallas(shape, out_dtype):
     """Both output dtypes of the u8 entry's plain version against the Pallas
-    kernel on the canvas / 255 repeated three times."""
+    kernel on the canvas / 255 repeated three times, given the mean the
+    Pallas kernel computes (the luma of the repeated channels): bf16 near
+    zero magnifies any float32 difference in the inputs."""
     gray = np.random.default_rng(4).integers(0, 256, shape, np.uint8)
-    ref = np.asarray(jax_enhance(
-        jnp.asarray(np.repeat(gray[..., None], 3, -1).astype(np.float32) / 255.0),
-        interpret=True)).transpose(0, 3, 1, 2)
-    t = torch.from_numpy(gray)
-    got = enhance.enhance_gray_plain(t, enhance.to_unit(t).mean(dim=(1, 2)), out_dtype)
+    rgb = jnp.repeat(_jax_unit(jnp.asarray(gray))[..., None], 3, -1)
+    ref = np.asarray(jax_enhance(rgb, interpret=True)).transpose(0, 3, 1, 2)
+    luma = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    means = torch.from_numpy(np.array(luma.mean(axis=(1, 2))))
+    got = enhance.enhance_gray_plain(torch.from_numpy(gray), means, out_dtype)
     assert got.shape == ref.shape
     _assert_matches(got, ref, ATOL)
+
+
+# The port's luma means and XLA's sum in different orders: they differ by
+# up to 6 float32 ulps on these pages, and by 8 on eight seeded 960 x 960
+# pages.
+MEAN_MAX_ULPS = 8
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 37, 45), (2, 960, 960)])
+def test_gray_means_match_jax_luma_mean(shape):
+    """The detector's means (``gray_means``, the luma of the repeated
+    channels) against the mean the Pallas kernel's wrapper computes."""
+    gray = np.random.default_rng(4).integers(0, 256, shape, np.uint8)
+    rgb = jnp.repeat(_jax_unit(jnp.asarray(gray))[..., None], 3, -1)
+    luma = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    ref = np.array(jax.jit(lambda x: x.mean(axis=(1, 2)))(luma))
+    got = enhance.gray_means(torch.from_numpy(gray)).numpy()
+    assert got.dtype == np.float32
+    assert np.abs(got.view(np.int32) - ref.view(np.int32)).max() <= MEAN_MAX_ULPS
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 37, 45)])
+def test_enhance_gray_bf16_with_port_means_matches_pallas(shape):
+    """The served detector input: the bf16 form given the port's own means
+    against the Pallas kernel (float32, its own means) rounded to bf16.
+    Each element is within one bf16 ulp of it, or within ATOL: means a few
+    float32 ulps apart move an output by ~1e-6, which near zero is many
+    bf16 ulps."""
+    gray = np.random.default_rng(4).integers(0, 256, shape, np.uint8)
+    rgb = jnp.repeat(_jax_unit(jnp.asarray(gray))[..., None], 3, -1)
+    ref = torch.tensor(np.asarray(jax_enhance(rgb, interpret=True)).transpose(0, 3, 1, 2))
+    t = torch.from_numpy(gray)
+    got = enhance.enhance_gray_plain(t, enhance.gray_means(t), torch.bfloat16).float()
+    want = ref.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    err = (got - want).abs()
+    assert bool(((err <= ulp) | (err <= ATOL)).all()), float(err.max())
 
 
 def test_fused_enhance_bf16_matches_pallas():

@@ -2,6 +2,7 @@
 OpenCV for the helpers the JAX package delegates to it)."""
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from ocr_system_tpu.ops import image_ops as jax_image_ops
 from ocr_system_tpu.ops import sampling as jax_sampling
 from ocr_system_tpu.models.charsets import get_charset as jax_charset
 from ocr_system_tpu_torch.engine import detector, host_image
+from ocr_system_tpu_torch.engine.recognizer import quad_crops
 from ocr_system_tpu_torch.models.charsets import get_charset
 from ocr_system_tpu_torch.ops import boxes, ctc, device_boxes, image_ops, sampling
 
@@ -175,6 +177,42 @@ def test_crops_match_jax():
     assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
     assert np.array_equal(sampling.axis_aligned_mask(quads),
                           jax_sampling.axis_aligned_mask(quads))
+
+
+def test_rotated_quad_crops_round_as_jitted_jax():
+    """The recognizer's rotated-quad crops take the u8 stack to [0, 1] as
+    the JAX recognizer's jitted ``pages / 255.0`` does (a multiply by
+    float32(1/255)), on the CPU as on the card: bit for bit the port's
+    crop of the JAX-converted page, and within 1e-5 of the JAX quad crop
+    itself. The page is made of the six 4-bit wire levels where a true
+    division rounds otherwise, and the other 4-bit levels."""
+    rng = np.random.default_rng(11)
+    levels = np.arange(0, 256, 17, dtype=np.uint8)
+    assert {51, 102, 119, 204, 221, 238} <= set(levels.tolist())
+    stack = rng.choice(levels, (3, 64, 80)).astype(np.uint8)
+    quads = np.zeros((3, 5, 4, 2), np.float32)
+    for k in (0, 2):  # row 1 holds only padding crops
+        for j in range(5):
+            x, y = rng.uniform(2, 40), rng.uniform(2, 40)
+            w, h, t = rng.uniform(10, 35), rng.uniform(6, 20), rng.uniform(-0.3, 0.3)
+            quads[k, j] = [[x, y], [x + w, y + t * h], [x + w - t * h, y + (1 + t) * h],
+                           [x - t * h, y + h]]
+    shape = (48, 80)
+    got = quad_crops(torch.from_numpy(stack), torch.from_numpy(quads), [0, 2], shape)
+    got = got.numpy().reshape(3, 5, *shape)
+    assert not got[1].any()
+    unit = np.array(jax.jit(lambda g: g.astype(jnp.float32) / 255.0)(jnp.asarray(stack)))
+    true_div = stack.astype(np.float32) / np.float32(255.0)
+    ref_jax = jax.jit(jax.vmap(lambda p, q: jax_sampling.crop_quads(p, q, shape)))(
+        jnp.asarray(unit), jnp.asarray(quads))
+    for k in (0, 2):
+        same_page = sampling.crop_quads(torch.from_numpy(unit[k]), torch.from_numpy(quads[k]),
+                                        shape).numpy()
+        assert np.array_equal(got[k].view(np.uint32), same_page.view(np.uint32))
+        assert np.abs(got[k] - np.asarray(ref_jax[k])).max() < 1e-5
+        other = sampling.crop_quads(torch.from_numpy(true_div[k]),
+                                    torch.from_numpy(quads[k]), shape).numpy()
+        assert (other != got[k]).any()  # the test sees the rounding
 
 
 def test_ctc_decode_matches_jax():

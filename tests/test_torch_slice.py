@@ -1,7 +1,10 @@
 """The port's slice end to end against the JAX package: the same
 training/synth_forms pages through ``JaxOCREngine.process_pages`` and
 ``TorchOCREngine.process_pages`` with the trained det and rec_latin
-checkpoints, converted by ocr_system_tpu_torch/core/weights.py."""
+checkpoints, converted by ocr_system_tpu_torch/core/weights.py: the
+neural engine, and the served hybrid engine (selection marks,
+handwriting and glue split on) built by each package's ``get_engine``
+path from the orbax checkpoints and from their exported .npz copies."""
 
 import jax
 import numpy as np
@@ -12,19 +15,33 @@ from ocr_system_tpu.core.config import Settings as JaxSettings
 from ocr_system_tpu.core.mesh import build_mesh, mesh_context
 from ocr_system_tpu.engine.detector import _rotate_host
 from ocr_system_tpu.engine.pipeline import JaxOCREngine
+from ocr_system_tpu.engine.pipeline import _build_engine as jax_build_engine
 from ocr_system_tpu.engine.preprocess import PageImage as JaxPageImage
 from ocr_system_tpu.training import synth_forms
 from ocr_system_tpu_torch.core import weights
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine.detector import Detector
-from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
+from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine, get_engine
 from ocr_system_tpu_torch.engine.preprocess import PageImage
 from ocr_system_tpu_torch.engine.recognizer import Recognizer
+from ocr_system_tpu_torch.utils.smoke import (
+    BF16_WORD_SHARE,
+    LAYOUT_TYPES,
+    compare_to_expected,
+    draw_checkboxes,
+    page_record,
+)
 
 torch.set_num_threads(1)
 
+# the neural engine alone: no classical pass, marks, handwriting or glue
+# split
 SMALL = dict(
     SLICE_SETTINGS,
+    ocr_engine="jax",
+    enable_selection_marks=False,
+    enable_handwriting_detection=False,
+    det_glue_split=False,
     det_image_buckets=(256,),
     rec_width_buckets=(80, 160),
     rec_batch_size=8,
@@ -107,3 +124,74 @@ def test_slice_bf16_close_to_jax(pages):
             if best is not None and _iou(a["polygon"], best["polygon"]) >= 0.9:
                 same += a["content"] == best["content"]
     assert n > 0 and same >= 0.95 * n
+
+
+# the served engine: every OCR default but script routing, at the 512
+# bucket (at 256 the drawn checkboxes fall under the marks' 8 px minimum)
+HYBRID = dict(
+    SLICE_SETTINGS,
+    ocr_engine="hybrid",
+    det_image_buckets=(512,),
+    rec_width_buckets=(80, 160, 320),
+    rec_batch_size=8,
+)
+REPO_WEIGHTS = "ocr_system_tpu_torch/weights"
+
+
+@pytest.fixture(scope="module")
+def forms():
+    """Three synthetic forms at 512 with signature squiggles, a table and
+    drawn checkboxes."""
+    gen = synth_forms.FormGenerator(seed=6, deva_fraction=0.0)
+    rng = np.random.default_rng(6)
+    out = []
+    for _ in range(3):
+        img = synth_forms.render_spec(gen.generate(512)).image
+        out.append(draw_checkboxes((np.asarray(img) * 255).round().astype(np.uint8), rng, 4))
+    return out
+
+
+def _run_hybrid(forms, dtype):
+    jax_eng = jax_build_engine("hybrid", JaxSettings(
+        **HYBRID, compute_dtype=dtype, det_checkpoint="checkpoints/det",
+        rec_checkpoint="checkpoints/rec_latin"))
+    eng = get_engine(Settings(**HYBRID, compute_dtype=dtype,
+                              det_checkpoint=f"{REPO_WEIGHTS}/det.npz",
+                              rec_checkpoint=f"{REPO_WEIGHTS}/rec_latin.npz"), device="cpu")
+    with mesh_context(build_mesh("dp=1")):
+        ref = jax_eng.process_pages([JaxPageImage(p, i + 1) for i, p in enumerate(forms)])
+    got = eng.process_pages([PageImage(p, i + 1) for i, p in enumerate(forms)])
+    return [page_record(r) for r in ref], [page_record(g) for g in got], eng
+
+
+def test_hybrid_slice_f32_matches_jax(forms):
+    """Every layout box (word, line, table, selection mark, handwriting)
+    with its content and state, and the markdown, as the JAX package's
+    hybrid engine gives them; polygons within 1 px."""
+    ref, got, eng = _run_hybrid(forms, "float32")
+    assert set(eng.stage_ms) >= {"det", "det_neural", "det_classical", "rec", "glue", "finish"}
+    assert any(r["selection_mark"] for r in ref) and any(r["handwriting"] for r in ref)
+    assert any(r["table"] for r in ref)
+    for r, g in zip(ref, got):
+        for typ in LAYOUT_TYPES:
+            assert len(r[typ]) == len(g[typ]), typ
+            for a, b in zip(r[typ], g[typ]):
+                assert np.abs(np.array(a["polygon"]) - np.array(b["polygon"])).max() <= 1.0
+                assert a["content"] == b["content"] and a.get("state") == b.get("state")
+        assert r["markdown"] == g["markdown"]
+
+
+def test_hybrid_slice_bf16_close_to_jax(forms):
+    """bf16 serving against the JAX package's bf16: at least 95% of its
+    words matched (IoU >= 0.9, same text), and BF16_WORD_SHARE of them with
+    dot-leader runs of any length alike, as chip_smoke.py holds the
+    committed forms; marks and handwriting equal."""
+    ref, got, _ = _run_hybrid(forms, "bfloat16")
+    n = matched = leaders = 0
+    for r, g in zip(ref, got):
+        c = compare_to_expected(r, g)
+        n, matched = n + c["words"], matched + c["matched"]
+        leaders += c["matched_leaders"]
+        assert c["marks_ok"] and c["handwriting_ok"]
+    assert n > 0 and matched >= 0.95 * n
+    assert leaders >= BF16_WORD_SHARE * n

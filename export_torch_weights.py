@@ -6,19 +6,26 @@ port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
 Writes, in ocr_system_tpu_torch/:
 
-- weights/det.npz, weights/rec_latin.npz: checkpoints/det and
-  checkpoints/rec_latin, loaded by the JAX package's own loader
-  (core/checkpoint.init_or_load, through its engine) on the CPU, converted
-  by the port's core/weights.dbnet_state_dict / svtr_state_dict, written
-  by core/weights.save_npz (float32);
+- weights/det.npz, weights/rec_latin.npz, weights/rec_devanagari.npz:
+  checkpoints/det, checkpoints/rec_latin and checkpoints/rec_devanagari,
+  loaded by the JAX package's own loader (core/checkpoint.init_or_load,
+  through its engine) on the CPU, converted by the port's
+  core/weights.dbnet_state_dict / svtr_state_dict, written by
+  core/weights.save_npz (float32);
 - assets/smoke_forms.npz: SMOKE_FORMS synthetic forms at 960 x 960
   (training/synth_forms.FormGenerator, seed SMOKE_SEED, Latin only), each
   with checkboxes drawn in blank places (utils/smoke.draw_checkboxes), as
   one compressed (N, 960, 960, 3) uint8 RGB array;
-- assets/smoke_forms_expected.json: the JAX package's hybrid engine on
-  those forms on the CPU (SMOKE_SETTINGS: the serving defaults with Latin
-  recognition), at float32 and at bfloat16: per page its word, line,
-  table, selection-mark and handwriting boxes and its markdown
+- assets/hindi_forms.npz: HINDI_FORMS Hindi forms drawn the same way
+  (seed HINDI_SEED, deva_fraction 1; the Devanagari font comes from
+  training/devanagari_font.ensure_font);
+- assets/smoke_forms_expected.json: the JAX package's hybrid engine on the
+  CPU at the serving defaults (SMOKE_SETTINGS: script routing included)
+  with the three checkpoints, at float32 and at bfloat16, on the Latin
+  forms (one wave) and on the mixed wave of the Hindi forms followed by
+  Latin forms 1 to MIXED_LATIN: per page its word, line, table,
+  selection-mark and handwriting boxes, each word's recognizer, the crops
+  each rescue re-decoded and replaced, and its markdown
   (utils/smoke.page_record);
 - assets/glued_lines.npz, assets/glued_lines_expected.json: a page of
   printed lines whose value and the next column's label decode as one
@@ -34,6 +41,7 @@ package, and the package never imports it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -48,27 +56,98 @@ SMOKE_SEED = 6
 SMOKE_FORMS = 8
 SMOKE_SIDE = 960
 CHECKBOXES_PER_FORM = 4
-# what the expectations were computed with (at each compute dtype);
-# chip_smoke.py builds the port's engines from the same values
-SMOKE_SETTINGS = {"ocr_engine": "hybrid", "rec_charset": "latin"}
+HINDI_SEED = 7
+HINDI_FORMS = 4
+MIXED_LATIN = 4  # Latin forms in the mixed wave, after the Hindi ones
+# what the expectations were computed with (at each compute dtype):
+# the serving defaults; chip_smoke.py builds the port's engines from them
+SMOKE_SETTINGS = {"ocr_engine": "hybrid"}
 DTYPES = ("float32", "bfloat16")
 # the det score and rec confidence the glued lines' boxes carry into the
 # glue split
 GLUED_SCORE, GLUED_CONF = 0.8, 0.9
 
 
-def smoke_forms() -> np.ndarray:
+def draw_forms(seed: int, n: int, deva_fraction: float, side: int = SMOKE_SIDE,
+               checkboxes: int = CHECKBOXES_PER_FORM) -> np.ndarray:
+    """n synthetic forms, (n, side, side, 3) uint8, each with checkboxes
+    drawn in blank places."""
     from ocr_system_tpu.training import synth_forms
     from ocr_system_tpu_torch.utils.smoke import draw_checkboxes
 
-    gen = synth_forms.FormGenerator(seed=SMOKE_SEED, deva_fraction=0.0)
-    rng = np.random.default_rng(SMOKE_SEED)
+    gen = synth_forms.FormGenerator(seed=seed, deva_fraction=deva_fraction)
+    rng = np.random.default_rng(seed)
     pages = []
-    for _ in range(SMOKE_FORMS):
-        img = synth_forms.render_spec(gen.generate(SMOKE_SIDE)).image
+    for _ in range(n):
+        img = synth_forms.render_spec(gen.generate(side)).image
         page = (np.asarray(img) * 255).round().astype(np.uint8)
-        pages.append(draw_checkboxes(page, rng, CHECKBOXES_PER_FORM))
+        pages.append(draw_checkboxes(page, rng, checkboxes))
     return np.stack(pages)
+
+
+def smoke_forms() -> np.ndarray:
+    return draw_forms(SMOKE_SEED, SMOKE_FORMS, 0.0)
+
+
+def hindi_forms() -> np.ndarray:
+    return draw_forms(HINDI_SEED, HINDI_FORMS, 1.0)
+
+
+@contextlib.contextmanager
+def jax_wave_probe(engine):
+    """While open, a JaxOCREngine records what the port's engine records of
+    a wave: its det stage's DetResults (``"dets"``), every recognition
+    dispatch as (charset name, the quads per page) (``"calls"``), and per
+    page the crops each rescue re-decoded and replaced (``"rescued"``;
+    replaced: the results the rescue swapped)."""
+    cls = type(engine)
+    wave: dict = {"dets": None, "calls": [], "rescued": None}
+
+    def det_stage(pages):
+        wave["dets"] = cls.det_stage(engine, pages)
+        return wave["dets"]
+
+    def recognize_with(rec, pages, dets, quads_list):
+        wave["calls"].append((rec.charset.name, [np.array(q) for q in quads_list]))
+        return cls._recognize_with(engine, rec, pages, dets, quads_list)
+
+    def counted(name: str, key: str):
+        def rescue(pages, dets, quads_list, *rest):
+            out = rest[-1]
+            before = [list(row) for row in out]
+            first = len(wave["calls"])
+            getattr(cls, name)(engine, pages, dets, quads_list, *rest)
+            if wave["rescued"] is None:
+                wave["rescued"] = [{"confidence": [0, 0], "digit_glyph": [0, 0]} for _ in out]
+            for i, row in enumerate(wave["rescued"]):
+                row[key] = [sum(len(q[i]) for _, q in wave["calls"][first:]),
+                            sum(a is not b for a, b in zip(before[i], out[i]))]
+        return rescue
+
+    engine.det_stage = det_stage
+    engine._recognize_with = recognize_with
+    engine._confidence_rescue = counted("_confidence_rescue", "confidence")
+    engine._digit_glyph_rescue = counted("_digit_glyph_rescue", "digit_glyph")
+    try:
+        yield wave
+    finally:
+        for name in ("det_stage", "_recognize_with", "_confidence_rescue",
+                     "_digit_glyph_rescue"):
+            delattr(engine, name)
+
+
+def run_jax_wave(engine, pages) -> tuple[list, list[dict], list[dict]]:
+    """``engine.process_pages(pages)`` of a JaxOCREngine, with per page each
+    det box's recognizer by its polygon (the port's ``box_recognizers`` on
+    the JAX DetResults) and the crops each rescue re-decoded and
+    replaced."""
+    from ocr_system_tpu_torch.engine.pipeline import box_recognizers
+
+    with jax_wave_probe(engine) as wave:
+        outs = engine.process_pages(pages)
+    rescued = wave["rescued"] or [
+        {"confidence": [0, 0], "digit_glyph": [0, 0]} for _ in pages]
+    return outs, [box_recognizers(d) for d in wave["dets"]], rescued
 
 
 def glued_lines_page() -> tuple[np.ndarray, np.ndarray, list[str]]:
@@ -107,7 +186,7 @@ def export_glued() -> list[Path]:
     page, quads, texts = glued_lines_page()
     expected = {"jax": jax.__version__, "score": GLUED_SCORE, "confidence": GLUED_CONF}
     for dt in DTYPES:
-        engine = JaxOCREngine(JaxSettings(rec_charset="latin", compute_dtype=dt,
+        engine = JaxOCREngine(JaxSettings(compute_dtype=dt,
                                           rec_checkpoint=str(REPO / "checkpoints/rec_latin")))
         det = [DetResult(boxes=[DetectedBox(q.copy(), GLUED_SCORE) for q in quads],
                          skew_angle=0.0, page=page, gray=rgb_to_gray(page))]
@@ -133,37 +212,54 @@ def main() -> int:
     from ocr_system_tpu_torch.utils.smoke import page_record
 
     ckpt = dict(det_checkpoint=str(REPO / "checkpoints/det"),
-                rec_checkpoint=str(REPO / "checkpoints/rec_latin"))
+                rec_checkpoint=str(REPO / "checkpoints/rec_latin"),
+                rec_checkpoint_devanagari=str(REPO / "checkpoints/rec_devanagari"))
     engines = {dt: _build_engine("hybrid", JaxSettings(**SMOKE_SETTINGS, **ckpt, compute_dtype=dt))
                for dt in DTYPES}
     tree = lambda v: jax.tree.map(np.asarray, v)  # noqa: E731
     f32 = engines["float32"]
-    det = weights.save_npz(WEIGHTS / "det.npz",
-                           weights.dbnet_state_dict(tree(f32.detector.neural.variables)))
-    rec = weights.save_npz(WEIGHTS / "rec_latin.npz",
-                           weights.svtr_state_dict(tree(f32.recognizer.variables)))
+    deva = f32._devanagari_recognizer()
+    if deva is None or deva.charset.name != "devanagari":
+        raise SystemExit("the JAX engine built no Devanagari recognizer")
+    written = [
+        weights.save_npz(WEIGHTS / "det.npz",
+                         weights.dbnet_state_dict(tree(f32.detector.neural.variables))),
+        weights.save_npz(WEIGHTS / "rec_latin.npz",
+                         weights.svtr_state_dict(tree(f32.recognizer.variables))),
+        weights.save_npz(WEIGHTS / "rec_devanagari.npz",
+                         weights.svtr_state_dict(tree(deva.variables))),
+    ]
 
-    forms = smoke_forms()
+    forms, hindi = smoke_forms(), hindi_forms()
     ASSETS.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(ASSETS / "smoke_forms.npz", pages=forms)
+    np.savez_compressed(ASSETS / "hindi_forms.npz", pages=hindi)
+    waves = {"pages": list(forms), "mixed": list(hindi) + list(forms[:MIXED_LATIN])}
     expected = {"settings": SMOKE_SETTINGS, "seed": SMOKE_SEED, "side": SMOKE_SIDE,
-                "jax": jax.__version__, "pages": {}}
+                "hindi_seed": HINDI_SEED, "mixed_latin": MIXED_LATIN,
+                "jax": jax.__version__, **{k: {} for k in waves}}
     for dt, engine in engines.items():
-        # one device: the checkpoints restore onto one, so no dp mesh
-        with mesh_context(build_mesh("dp=1")):
-            outs = engine.process_pages([PageImage(p, i + 1) for i, p in enumerate(forms)])
-        if not all(o.success for o in outs):
-            raise SystemExit(f"the JAX engine failed a smoke form: {[o.error for o in outs]}")
-        expected["pages"][dt] = [page_record(o) for o in outs]
+        for key, arrays in waves.items():
+            # one device: the checkpoints restore onto one, so no dp mesh
+            with mesh_context(build_mesh("dp=1")):
+                outs, routed, rescued = run_jax_wave(
+                    engine, [PageImage(p, i + 1) for i, p in enumerate(arrays)])
+            if not all(o.success for o in outs):
+                raise SystemExit(f"the JAX engine failed a form: {[o.error for o in outs]}")
+            expected[key][dt] = [page_record(o, r, c) for o, r, c in zip(outs, routed, rescued)]
     (ASSETS / "smoke_forms_expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     glued = export_glued()
-    for path in (det, rec, ASSETS / "smoke_forms.npz", ASSETS / "smoke_forms_expected.json",
-                 *glued):
+    for path in (*written, ASSETS / "smoke_forms.npz", ASSETS / "hindi_forms.npz",
+                 ASSETS / "smoke_forms_expected.json", *glued):
         print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
-    for dt in DTYPES:
-        for r in expected["pages"][dt]:
-            print(f"{dt} page {r['page_number']}: {len(r['word'])} words, "
-                  f"{len(r['selection_mark'])} marks, {len(r['handwriting'])} handwriting")
+    for key in waves:
+        for dt in DTYPES:
+            for r in expected[key][dt]:
+                scripts = [w["recognizer"] for w in r["word"]]
+                print(f"{key} {dt} page {r['page_number']}: {len(r['word'])} words "
+                      f"({scripts.count('devanagari')} devanagari), "
+                      f"{len(r['selection_mark'])} marks, {len(r['handwriting'])} handwriting, "
+                      f"rescued {r['rescued']}")
     return 0
 
 

@@ -61,6 +61,9 @@ class DetResult:
     # selection_marks.page_components(gray), computed in the det stage when
     # selection marks or handwriting detection are on
     cc: tuple | None = None
+    # the engine's det stage routes the page: one Recognizer for every box,
+    # a list aligned with the boxes, or None (not routed yet)
+    routing: object | None = None
 
 
 class Detector:

@@ -2,13 +2,16 @@
 
     python3 -m ocr_system_tpu_torch.utils.profile_wave [--out DIR]
 
-Runs the served hybrid engine's ``process_pages`` (trained weights, bf16)
-on the 8 committed smoke forms that chip_smoke.py drives, once to warm up
-and once under both ``cProfile`` (host: cumulative time per function)
-and ``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
-with the wall time, the device's busy time and idle share over the wave,
-and the top host functions and device kernels; writes the full tables to
-DIR (default ``build/profile_wave``). Needs a CUDA device.
+Runs the served engine's ``process_pages`` (every serving default, script
+routing included; trained weights, bf16) on the two 8-page waves that
+chip_smoke.py drives: the committed Latin forms, and the mixed wave of the
+Hindi forms and Latin forms. Each wave runs once to warm up and once under
+both ``cProfile`` (host: cumulative time per function) and
+``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
+per wave with the wall time, the device's busy time and idle share over
+the wave, the stage ms, and the top host functions and device kernels;
+writes the full tables to DIR (default ``build/profile_wave``). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -48,6 +51,12 @@ _HOST = (
     ("selection_marks.py", "page_components"),
     ("selection_marks.py", "detect_selection_marks"),
     ("handwriting.py", "detect_handwriting"),
+    ("pipeline.py", "_route_and_normalize"),
+    ("script.py", "page_script"),
+    ("script.py", "resegment_devanagari"),
+    ("script.py", "crop_script"),
+    ("pipeline.py", "_confidence_rescue"),
+    ("pipeline.py", "_digit_glyph_rescue"),
     ("pipeline.py", "_split_glued"),
     ("pipeline.py", "_finish_page"),
 )
@@ -63,18 +72,9 @@ def _host_rows(prof: cProfile.Profile) -> dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/profile_wave")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_wave: no CUDA device", file=sys.stderr)
-        return 1
-    from ocr_system_tpu_torch.engine.preprocess import PageImage
-    from ocr_system_tpu_torch.utils.smoke import build_engine, smoke_forms
-
-    engine = build_engine("cuda", ocr_engine="hybrid")
-    pages = [PageImage(p, i + 1) for i, p in enumerate(smoke_forms()[0])]
+def profile(engine, pages) -> tuple[dict, str]:
+    """One warm-up wave, then one wave under both profilers: the JSON row
+    and the full tables."""
     engine.process_pages(pages)  # warm-up: cuDNN/cuBLAS set-up, kernel build
     torch.cuda.synchronize()
 
@@ -109,23 +109,40 @@ def main() -> int:
          if a.self_device_time_total > 0),
         key=lambda kv: -kv[1],
     )[:12]
-    host_rows = _host_rows(host)
-
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_wave.txt"), "w") as f:
-        f.write(table + "\n\n")
-        buf = io.StringIO()
-        pstats.Stats(host, stream=buf).sort_stats("cumulative").print_stats(40)
-        f.write(buf.getvalue())
-    print(json.dumps({
+    buf = io.StringIO()
+    pstats.Stats(host, stream=buf).sort_stats("cumulative").print_stats(40)
+    return {
         "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-        "host_cumulative_ms": host_rows,
+        "host_cumulative_ms": _host_rows(host),
         "device_top_ms": device_top,
-        "stage_ms": engine.stage_ms,
-    }), flush=True)
+        "stage_ms": dict(engine.stage_ms),
+        "rescued": engine.rescued,
+    }, table + "\n\n" + buf.getvalue()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_wave")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_wave: no CUDA device", file=sys.stderr)
+        return 1
+    from ocr_system_tpu_torch.engine.preprocess import PageImage
+    from ocr_system_tpu_torch.utils.smoke import build_engine, hindi_forms, smoke_forms
+
+    engine = build_engine("cuda")
+    forms, expected = smoke_forms()
+    waves = {"latin": list(forms),
+             "mixed": [*hindi_forms(), *forms[:expected["mixed_latin"]]]}
+    os.makedirs(args.out, exist_ok=True)
+    for name, arrays in waves.items():
+        row, tables = profile(engine, [PageImage(p, i + 1) for i, p in enumerate(arrays)])
+        with open(os.path.join(args.out, f"profile_wave_{name}.txt"), "w") as f:
+            f.write(tables)
+        print(json.dumps({"wave": name, **row}), flush=True)
     return 0
 
 

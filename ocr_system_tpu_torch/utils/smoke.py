@@ -1,10 +1,11 @@
 """The smoke workload of chip_smoke.py and utils/profile_wave.py: the
 port's engines with the trained weights (``weights/*.npz``, written by
-export_torch_weights.py), the committed synthetic forms and glued-lines
-page and the JAX package's outputs on them (``assets/``), and synthetic
-pages and checkboxes drawn with numpy from a seed; the record and
-comparison of a page's layout against those outputs; and the bf16
-agreement rules that chip_smoke.py and the tests share."""
+export_torch_weights.py), the committed Latin and Hindi synthetic forms
+and glued-lines page and the JAX package's outputs on them (``assets/``),
+and synthetic pages and checkboxes drawn with numpy from a seed; the
+record and comparison of a page's layout, routing and rescues against
+those outputs; and the bf16 agreement rules that chip_smoke.py and the
+tests share."""
 
 from __future__ import annotations
 
@@ -17,12 +18,13 @@ import torch
 
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
-from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine, get_engine
+from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, get_engine
 
 PACKAGE = Path(__file__).resolve().parents[1]
 TRAINED = {
     "det_checkpoint": str(PACKAGE / "weights" / "det.npz"),
     "rec_checkpoint": str(PACKAGE / "weights" / "rec_latin.npz"),
+    "rec_checkpoint_devanagari": str(PACKAGE / "weights" / "rec_devanagari.npz"),
 }
 # the neural engine alone (no classical pass, marks, handwriting or glue
 # split)
@@ -33,6 +35,7 @@ NEURAL = {
     "det_glue_split": False,
 }
 FORMS = PACKAGE / "assets" / "smoke_forms.npz"
+HINDI = PACKAGE / "assets" / "hindi_forms.npz"
 EXPECTED = PACKAGE / "assets" / "smoke_forms_expected.json"
 GLUED = PACKAGE / "assets" / "glued_lines.npz"
 GLUED_EXPECTED = PACKAGE / "assets" / "glued_lines_expected.json"
@@ -62,17 +65,26 @@ def bf16_agrees(got: torch.Tensor, ref: torch.Tensor) -> bool:
 
 
 def build_engine(device, **overrides) -> TorchOCREngine:
-    """``get_engine`` of the slice's settings (serving defaults +
-    SLICE_SETTINGS + overrides) with the trained weights."""
-    return get_engine(Settings(**{**SLICE_SETTINGS, **TRAINED, **overrides}), device=device)
+    """``get_engine`` of the serving defaults + overrides with the trained
+    weights."""
+    return get_engine(Settings(**{**TRAINED, **overrides}), device=device)
 
 
 def smoke_forms() -> tuple[np.ndarray, dict]:
-    """The committed forms, (N, 960, 960, 3) uint8, and the JAX package's
-    outputs on them (their settings, and a page_record per form)."""
+    """The committed Latin forms, (N, 960, 960, 3) uint8, and the JAX
+    package's outputs (their settings, and per compute dtype a page_record
+    per page: of the Latin forms under "pages", of the mixed wave of the
+    Hindi forms and the first ``mixed_latin`` Latin forms under
+    "mixed")."""
     with np.load(FORMS) as z:
         pages = z["pages"]
     return pages, json.loads(EXPECTED.read_text())
+
+
+def hindi_forms() -> np.ndarray:
+    """The committed Hindi forms, (N, 960, 960, 3) uint8."""
+    with np.load(HINDI) as z:
+        return z["pages"]
 
 
 def glued_lines() -> tuple[np.ndarray, np.ndarray, list[str], dict]:
@@ -134,10 +146,12 @@ def draw_checkboxes(page: np.ndarray, rng: np.random.Generator, n: int) -> np.nd
 LAYOUT_TYPES = ("word", "line", "table", "selection_mark", "handwriting")
 
 
-def page_record(out) -> dict:
+def page_record(out, routed: dict | None = None, rescued: dict | None = None) -> dict:
     """An OCROutput (of either package) as the JSON record that the
     committed smoke expectations hold: its layout boxes by type (polygon,
-    content, and a mark's state) and its markdown."""
+    content, and a mark's state) and its markdown; with ``routed`` (the
+    page's ``pipeline.box_recognizers``) each word's recognizer, and with
+    ``rescued`` the crops each rescue re-decoded and replaced."""
     rec: dict = {"page_number": out.page_number, "markdown": out.markdown}
     for typ in LAYOUT_TYPES:
         rec[typ] = [
@@ -146,6 +160,11 @@ def page_record(out) -> dict:
              **({"state": b["state"]} if "state" in b else {})}
             for b in out.layout_boxes if b["type"] == typ
         ]
+    if routed is not None:
+        for w in rec["word"]:
+            w["recognizer"] = routed[tuple(w["polygon"])]
+    if rescued is not None:
+        rec["rescued"] = rescued
     return rec
 
 
@@ -205,19 +224,30 @@ def compare_to_expected(expected: dict, got: dict) -> dict:
     any length alike), the expected words that a port box with IoU >= 0.9
     covers whatever its text, and whether the selection marks (count and
     states, in order) and the handwriting boxes (count) agree. Text misses
-    (exact texts) are listed."""
+    (exact texts) are listed. Where both records carry them: the expected
+    words whose best port box (IoU >= 0.9) went to another recognizer
+    (``recognizer_misses``), and whether the rescue counts are equal
+    (``rescued_ok``; None where either record lacks them)."""
     matched, misses = _match_words(expected["word"], got["word"], False)
     matched_leaders, _ = _match_words(expected["word"], got["word"], True)
-    boxes = sum(
-        any(box_iou(w["polygon"], g["polygon"]) >= 0.9 for g in got["word"])
-        for w in expected["word"]
-    )
+    boxes = 0
+    recognizer_misses = []
+    for w in expected["word"]:
+        best = max(got["word"], key=lambda g: box_iou(w["polygon"], g["polygon"]), default=None)
+        if best is None or box_iou(w["polygon"], best["polygon"]) < 0.9:
+            continue
+        boxes += 1
+        if "recognizer" in w and w["recognizer"] != best.get("recognizer"):
+            recognizer_misses.append({"expected": w, "got": best})
     marks_ok = ([m["state"] for m in expected["selection_mark"]]
                 == [m["state"] for m in got["selection_mark"]])
     hand_ok = len(expected["handwriting"]) == len(got["handwriting"])
+    rescued_ok = (expected["rescued"] == got["rescued"]
+                  if "rescued" in expected and "rescued" in got else None)
     return {"words": len(expected["word"]), "matched": matched,
             "matched_leaders": matched_leaders, "boxes_matched": boxes,
-            "misses": misses, "marks_ok": marks_ok, "handwriting_ok": hand_ok}
+            "misses": misses, "marks_ok": marks_ok, "handwriting_ok": hand_ok,
+            "recognizer_misses": recognizer_misses, "rescued_ok": rescued_ok}
 
 
 def text_share(expected: list[dict], got: list[dict]) -> float:

@@ -3,6 +3,7 @@ environment names (minus mesh_shape), same .env and environment parsing."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,50 +65,81 @@ def test_model_copy():
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu():
     """Without a card and without device="cpu" the engine raises."""
-    from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
+    from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TorchOCREngine(Settings(**SLICE_SETTINGS))
+        TorchOCREngine(Settings())
 
 
-def test_engine_refuses_settings_outside_the_slice():
-    from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
-
-    with pytest.raises(ValueError, match="not ported yet"):
-        TorchOCREngine(Settings(**{**SLICE_SETTINGS, "rec_charset": "auto"}), device="cpu")
-
-
-@pytest.mark.parametrize("update", [
+# the detector options the port does not run yet
+UNPORTED_DET = [
     {"det_wire_bits": 2},
     {"det_wire_bits": 8},
     {"enable_contrast_enhancement": False},
     {"det_prob_wire_bits": 4},
     {"enable_adaptive_binarization": True},
-])
+]
+
+
+def test_engine_refuses_settings_outside_the_slice():
+    """What the port does not run yet is the detector's options: the engine
+    refuses each through its detector."""
+    from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine
+
+    for update in UNPORTED_DET:
+        with pytest.raises(ValueError, match="port"):
+            TorchOCREngine(Settings(**update), device="cpu")
+
+
+@pytest.mark.parametrize("update", UNPORTED_DET)
 def test_detector_refuses_unported_det_settings(update):
     """The detector runs only the served wire format and preprocessing;
     other values raise before any weights are built."""
     from ocr_system_tpu_torch.engine.detector import Detector
-    from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS
 
     with pytest.raises(ValueError, match="port"):
-        Detector(Settings(**{**SLICE_SETTINGS, **update}), device="cpu")
+        Detector(Settings(**update), device="cpu")
 
 
 def test_engine_accepts_every_serving_default_but_script_routing():
-    from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine
+    """The serving defaults build as they are, script routing now included
+    (the name is kept from when it was not), and so do the two options of
+    engine/script.py."""
+    from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine
 
-    assert SLICE_SETTINGS == {"rec_charset": "latin", "det_split_column_gaps": False,
-                              "rec_tighten_y": False}
-    s = Settings(rec_charset="latin")
-    assert (s.ocr_engine, s.enable_selection_marks, s.enable_handwriting_detection,
-            s.det_glue_split) == ("hybrid", True, True, True)
+    s = Settings()
+    assert (s.ocr_engine, s.rec_charset, s.enable_selection_marks,
+            s.enable_handwriting_detection, s.det_glue_split) == (
+        "hybrid", "auto", True, True, True)
     TorchOCREngine(s, device="cpu")
     for key in ("det_split_column_gaps", "rec_tighten_y"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            TorchOCREngine(Settings(rec_charset="latin", **{key: True}), device="cpu")
+        TorchOCREngine(Settings(**{key: True}), device="cpu")
+
+
+@pytest.mark.parametrize("charset", ["auto", "latin", "devanagari", "multilingual"])
+def test_every_rec_charset_runs_a_page(charset):
+    """Each rec_charset the JAX engine takes runs a page on the CPU (random
+    weights; "auto" with the exported Devanagari weights routes), with
+    det_split_column_gaps and rec_tighten_y on."""
+    from pathlib import Path
+
+    from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine
+    from ocr_system_tpu_torch.engine.preprocess import PageImage
+    from ocr_system_tpu_torch.utils.smoke import draw_page
+
+    deva = Path(__file__).resolve().parents[1] / "ocr_system_tpu_torch/weights/rec_devanagari.npz"
+    s = Settings(rec_charset=charset, det_image_buckets=(128,), rec_width_buckets=(80,),
+                 det_split_column_gaps=True, rec_tighten_y=True,
+                 rec_checkpoint_devanagari=str(deva))
+    eng = TorchOCREngine(s, device="cpu")
+    assert (eng.devanagari is not None) == (charset == "auto")
+    page = draw_page(np.random.default_rng(3), 128, 128)
+    out = eng.process_pages([PageImage(page, 1)])[0]
+    assert out.success and out.page_width == 128
+    assert [set(r.values()) <= {eng.recognizer.charset.name, "devanagari"}
+            for r in eng.routed] == [True]
 
 
 def test_get_engine_builds_each_engine_once():
@@ -121,7 +153,7 @@ def test_get_engine_builds_each_engine_once():
     from ocr_system_tpu_torch.engine.hybrid_detector import HybridDetector
     from ocr_system_tpu_torch.engine.pipeline import get_engine
 
-    small = dict(rec_charset="latin", det_image_buckets=(64,), rec_width_buckets=(80,))
+    small = dict(det_image_buckets=(64,), rec_width_buckets=(80,))
     for name, kind in (("jax", Detector), ("classical", ClassicalDetector),
                        ("hybrid", HybridDetector)):
         s = Settings(ocr_engine=name, **small)

@@ -229,12 +229,18 @@ def test_plan_splits_matches_jax():
 def test_exported_weights_equal_the_checkpoints():
     """weights/*.npz (export_torch_weights.py) equal the orbax checkpoints,
     loaded by the JAX package and converted, array for array."""
+    from ocr_system_tpu.models.charsets import get_charset
+
     tree = lambda v: jax.tree.map(np.asarray, v)  # noqa: E731
     s = JaxSettings(det_checkpoint=str(REPO / "checkpoints/det"),
                     rec_checkpoint=str(REPO / "checkpoints/rec_latin"), rec_charset="latin")
+    deva = JaxRecognizer(s.model_copy(update={
+        "rec_checkpoint": str(REPO / "checkpoints/rec_devanagari")}),
+        charset=get_charset("devanagari"))
     for name, want in (
         ("det", weights.dbnet_state_dict(tree(JaxDetector(s).variables))),
         ("rec_latin", weights.svtr_state_dict(tree(JaxRecognizer(s).variables))),
+        ("rec_devanagari", weights.svtr_state_dict(tree(deva.variables))),
     ):
         got = weights.load_npz(REPO / "ocr_system_tpu_torch" / "weights" / f"{name}.npz")
         assert sorted(got) == sorted(want)
@@ -297,7 +303,7 @@ def test_split_glued_matches_jax():
     det = [DetResult(boxes=[DetectedBox(q.copy(), 0.8) for q in quads], skew_angle=0.0,
                      page=page, gray=gray)]
     recs = [[RecResult(t, 0.9) for t in texts]]
-    eng._split_glued(det, recs)
+    eng._split_glued(det, recs, [eng.recognizer])
     assert len(jdet[0].boxes) > len(quads)  # the pass split something
     assert [r.text for r in recs[0]] == [r.text for r in jrecs[0]]
     _same_boxes(det[0].boxes, jdet[0].boxes)
@@ -319,7 +325,27 @@ def test_glued_lines_asset_matches_jax():
     det = [DetResult(boxes=[DetectedBox(q.copy(), want["score"]) for q in quads],
                      skew_angle=0.0, page=page, gray=rgb_to_gray(page))]
     recs = [[RecResult(t, want["confidence"]) for t in texts]]
-    eng._split_glued(det, recs)
+    eng._split_glued(det, recs, [eng.recognizer])
     assert len(det[0].boxes) > len(quads)
     assert [r.text for r in recs[0]] == want["float32"]["texts"]
     assert [b.quad.tolist() for b in det[0].boxes] == want["float32"]["quads"]
+
+
+def test_split_glued_skips_pages_not_routed_to_the_primary():
+    """Glue split runs on pages routed to the primary (Latin) recognizer
+    only: a page routed elsewhere, as a whole or per box, keeps its boxes
+    and decodes."""
+    from ocr_system_tpu_torch.engine.detector import DetResult
+    from ocr_system_tpu_torch.engine.recognizer import RecResult
+    from ocr_system_tpu_torch.utils.smoke import NEURAL, build_engine
+
+    page, quads, texts = glued_lines_page()
+    eng = build_engine("cpu", **NEURAL, compute_dtype="float32")
+    assert eng.devanagari is not None
+    for routing in (eng.devanagari, [eng.recognizer] * len(quads)):
+        det = [DetResult(boxes=[DetectedBox(q.copy(), 0.8) for q in quads], skew_angle=0.0,
+                         page=page, gray=rgb_to_gray(page))]
+        recs = [[RecResult(t, 0.9) for t in texts]]
+        eng._split_glued(det, recs, [routing])
+        assert [r.text for r in recs[0]] == texts
+        assert [b.quad.tolist() for b in det[0].boxes] == [q.tolist() for q in quads]

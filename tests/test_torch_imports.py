@@ -17,6 +17,7 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "pydantic", "cv2", "PIL",
 
 SCRIPT = r'''
 import importlib, pkgutil, sys
+import numpy as np
 
 BLOCKED = %r
 
@@ -59,6 +60,15 @@ hybrid = smoke.build_engine("cpu", **{**expected["settings"], **tiny})
 # the hybrid phase's checks, held against this engine's own first run
 first = [smoke.page_record(o) for o in hybrid.process_pages(pages(small))]
 hyb = cs.phase_hybrid(hybrid, pages(small), first, 1.0, 1.0, "hybrid", also={"itself": first})
+# the mixed wave: the top-left 320 x 320 of two Hindi forms at full
+# resolution (text at its own size, so the pages route to Devanagari), then
+# a Latin form; held against this engine's own first run, routing and
+# rescue counts included
+mixed = pages([np.ascontiguousarray(f[:320, :320]) for f in smoke.hindi_forms()[:2]] + small[:1])
+first_m = [smoke.page_record(*r) for r in zip(hybrid.process_pages(mixed), hybrid.routed,
+                                              hybrid.rescued)]
+mix = cs.phase_hybrid(hybrid, mixed, first_m, 1.0, 1.0, "mixed", routing_equal=True, hindi=2,
+                      min_hindi_text=1.0)
 sch = cs.phase_scheduler(hybrid, pages(small + small[:1]))
 host = cs.phase_host_ops(small[0], iters=1)
 # glue split at the served rec settings, against the committed JAX record
@@ -69,7 +79,11 @@ assert hyb["text_share_vs"] == {"itself": 1.0}, hyb
 assert set(hyb["stage_ms"]) >= {"det_neural", "det_classical", "glue", "finish"}, hyb
 assert len(host["ms"]) == 7, host
 assert glue["boxes_after"] > glue["lines"] and glue["texts_equal"], glue
-print("OK", rec["launches"], eng["launches"], hyb["launches"], sch["launches"])
+assert mix["devanagari_words"] > 0 and mix["devanagari_dispatch"]["dispatches"] > 0, mix
+assert sum(r["confidence"][0] for r in mix["rescued"]) > 0 and all(mix["rescued_ok"]), mix
+assert mix["hindi_bar_met"] and mix["hindi_text_share"] == 1.0, mix
+assert set(mix["stage_ms"]) >= {"route", "rescue"}, mix
+print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"])
 ''' % (BLOCKED,)
 
 

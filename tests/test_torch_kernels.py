@@ -18,7 +18,6 @@ from ocr_system_tpu.ops.sampling import crop_boxes_separable
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine import detector as detector_mod
 from ocr_system_tpu_torch.engine import recognizer as recognizer_mod
-from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS
 from ocr_system_tpu_torch.kernels import crop, enhance
 from ocr_system_tpu_torch.utils.smoke import bf16_agrees, bf16_disagreement
 
@@ -280,8 +279,7 @@ def test_stages_request_their_compute_dtype(monkeypatch, compute):
 
     monkeypatch.setattr(detector_mod, "enhance_gray", spy("enhance", enhance.enhance_gray))
     monkeypatch.setattr(recognizer_mod, "crop_boxes", spy("crop", crop.crop_boxes))
-    settings = Settings(**{**SLICE_SETTINGS, "compute_dtype": compute,
-                           "det_image_buckets": (64,), "rec_width_buckets": (80,)})
+    settings = Settings(compute_dtype=compute, det_image_buckets=(64,), rec_width_buckets=(80,))
     det = detector_mod.Detector(settings, device="cpu")
     det._forward(det._pack_wire(np.full((1, 64, 64), 200, np.uint8)))
     rec = recognizer_mod.Recognizer(settings, device="cpu")

@@ -1,10 +1,13 @@
 """The port's slice end to end against the JAX package: the same
 training/synth_forms pages through ``JaxOCREngine.process_pages`` and
-``TorchOCREngine.process_pages`` with the trained det and rec_latin
-checkpoints, converted by ocr_system_tpu_torch/core/weights.py: the
-neural engine, and the served hybrid engine (selection marks,
-handwriting and glue split on) built by each package's ``get_engine``
-path from the orbax checkpoints and from their exported .npz copies."""
+``TorchOCREngine.process_pages`` with the trained det, rec_latin and
+rec_devanagari checkpoints, converted by
+ocr_system_tpu_torch/core/weights.py: the neural engine and the hybrid
+engine (selection marks, handwriting and glue split on) with Latin
+recognition, and the served engine at every serving default (script
+routing included) on a wave of Hindi and Latin forms, each built by its
+package's ``get_engine`` path from the orbax checkpoints and from their
+exported .npz copies."""
 
 import jax
 import numpy as np
@@ -21,7 +24,7 @@ from ocr_system_tpu.training import synth_forms
 from ocr_system_tpu_torch.core import weights
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine.detector import Detector
-from ocr_system_tpu_torch.engine.pipeline import SLICE_SETTINGS, TorchOCREngine, get_engine
+from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, get_engine
 from ocr_system_tpu_torch.engine.preprocess import PageImage
 from ocr_system_tpu_torch.engine.recognizer import Recognizer
 from ocr_system_tpu_torch.utils.smoke import (
@@ -32,12 +35,14 @@ from ocr_system_tpu_torch.utils.smoke import (
     page_record,
 )
 
+from export_torch_weights import draw_forms, run_jax_wave
+
 torch.set_num_threads(1)
 
-# the neural engine alone: no classical pass, marks, handwriting or glue
-# split
+# the neural engine alone, with Latin recognition: no classical pass,
+# marks, handwriting or glue split
 SMALL = dict(
-    SLICE_SETTINGS,
+    rec_charset="latin",
     ocr_engine="jax",
     enable_selection_marks=False,
     enable_handwriting_detection=False,
@@ -126,10 +131,10 @@ def test_slice_bf16_close_to_jax(pages):
     assert n > 0 and same >= 0.95 * n
 
 
-# the served engine: every OCR default but script routing, at the 512
-# bucket (at 256 the drawn checkboxes fall under the marks' 8 px minimum)
+# the hybrid engine with Latin recognition, at the 512 bucket (at 256 the
+# drawn checkboxes fall under the marks' 8 px minimum)
 HYBRID = dict(
-    SLICE_SETTINGS,
+    rec_charset="latin",
     ocr_engine="hybrid",
     det_image_buckets=(512,),
     rec_width_buckets=(80, 160, 320),
@@ -195,3 +200,65 @@ def test_hybrid_slice_bf16_close_to_jax(forms):
         assert c["marks_ok"] and c["handwriting_ok"]
     assert n > 0 and matched >= 0.95 * n
     assert leaders >= BF16_WORD_SHARE * n
+
+
+# the served engine at every serving default: script routing between the
+# Latin and the Devanagari recognizer, and its rescues
+SERVED = dict(HYBRID, rec_charset="auto")
+
+
+@pytest.fixture(scope="module")
+def mixed(forms):
+    """Two Hindi forms at 512 with drawn checkboxes, then a Latin one."""
+    return list(draw_forms(7, 2, 1.0, side=512)) + forms[:1]
+
+
+def _run_served(pages, dtype):
+    jax_eng = jax_build_engine("hybrid", JaxSettings(
+        **SERVED, compute_dtype=dtype, det_checkpoint="checkpoints/det",
+        rec_checkpoint="checkpoints/rec_latin",
+        rec_checkpoint_devanagari="checkpoints/rec_devanagari"))
+    eng = get_engine(Settings(**SERVED, compute_dtype=dtype,
+                              det_checkpoint=f"{REPO_WEIGHTS}/det.npz",
+                              rec_checkpoint=f"{REPO_WEIGHTS}/rec_latin.npz",
+                              rec_checkpoint_devanagari=f"{REPO_WEIGHTS}/rec_devanagari.npz"),
+                     device="cpu")
+    with mesh_context(build_mesh("dp=1")):
+        ref, routed, rescued = run_jax_wave(
+            jax_eng, [JaxPageImage(p, i + 1) for i, p in enumerate(pages)])
+    got = eng.process_pages([PageImage(p, i + 1) for i, p in enumerate(pages)])
+    return ([page_record(*r) for r in zip(ref, routed, rescued)],
+            [page_record(*g) for g in zip(got, eng.routed, eng.rescued)], eng)
+
+
+def test_mixed_slice_f32_matches_jax(mixed):
+    """Every layout box with its content and state, the markdown, each
+    word's recognizer and each page's rescue counts, as the JAX package's
+    served engine gives them; polygons within 1 px."""
+    ref, got, eng = _run_served(mixed, "float32")
+    assert set(eng.stage_ms) >= {"det", "route", "rec", "rescue", "glue", "finish"}
+    scripts = [{w["recognizer"] for w in r["word"]} for r in ref]
+    assert scripts[:2] == [{"latin", "devanagari"}] * 2 and scripts[2] == {"latin"}
+    assert sum(r["rescued"]["confidence"][1] for r in ref) > 0
+    for r, g in zip(ref, got):
+        for typ in LAYOUT_TYPES:
+            assert len(r[typ]) == len(g[typ]), typ
+            for a, b in zip(r[typ], g[typ]):
+                assert np.abs(np.array(a["polygon"]) - np.array(b["polygon"])).max() <= 1.0
+                assert a["content"] == b["content"] and a.get("state") == b.get("state")
+                assert a.get("recognizer") == b.get("recognizer")
+        assert r["markdown"] == g["markdown"]
+        assert r["rescued"] == g["rescued"]
+
+
+def test_mixed_slice_bf16_close_to_jax(mixed):
+    """bf16 serving against the JAX package's bf16 on the mixed wave:
+    BF16_WORD_SHARE of its words matched with dot-leader runs of any length
+    alike, on all pages and on the Hindi pages alone; marks and
+    handwriting equal."""
+    ref, got, _ = _run_served(mixed, "bfloat16")
+    rows = [compare_to_expected(r, g) for r, g in zip(ref, got)]
+    assert all(c["marks_ok"] and c["handwriting_ok"] for c in rows)
+    for part in (rows, rows[:2]):
+        n = sum(c["words"] for c in part)
+        assert n > 0 and sum(c["matched_leaders"] for c in part) >= BF16_WORD_SHARE * n

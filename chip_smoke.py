@@ -26,7 +26,16 @@ times the host image operations on one form. Each kernel wrapper counts
 its launches; the counts are zeroed before each path phase and must be
 positive after it (on the CPU the wrappers run their plain versions and
 count nothing). On the mixed wave the Devanagari recognizer must dispatch
-and launch the crop kernel.
+and launch the crop kernel. Field extraction: ``get_extractor`` must serve
+the trained 512 x 8 layout transformer (``weights/extract.npz``), whose
+fields on the JAX package's OCR words of the 16 committed pages (each a
+one-page document) and of the Latin wave as one 8-page document are held
+against the JAX package's (``assets/extract_expected.json``): equal at
+float32, 95% at bf16, with its forward pass timed at each token window;
+then the served engine's Latin wave goes through
+``ExtractionOrchestrator.fields_for`` (extract, save and validate stages)
+and its fields, field rows and validation report are held against the JAX
+orchestrator's at float32 (reported at bf16).
 
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
@@ -365,6 +374,150 @@ def phase_glue(engine, dtype: str) -> dict:
     return row
 
 
+BUCKETS = (256, 512, 1024, 2048)  # the extractor's token windows
+
+
+def phase_extract(extractor, docs: dict, expected: dict, tag: str, exact: bool,
+                  min_share: float = 1.0, smi: str = "", buckets=BUCKETS) -> dict:
+    """The layout extractor on the JAX record's inputs (``docs``: name ->
+    ``extract_from_layout`` arguments), each held against the JAX package's
+    record of it (``expected``: name -> utils/smoke.result_record). One pass
+    over every document sets the card up for its window; the second is
+    timed per document and checked. ``exact``: every document's fields
+    equal in key, value and type, in order, its form type and raw_response
+    equal, confidences within 1e-3; else at least ``min_share`` of the
+    expected fields equal in key, value and type (misses printed per
+    document). Then the forward pass alone at each token window of
+    ``buckets`` (CUDA events on the card, the host clock on the CPU)."""
+    from ocr_system_tpu_torch.utils.smoke import compare_fields, result_record
+
+    for doc in docs.values():
+        extractor.extract_from_layout(*doc)
+    ms, rows = {}, {}
+    for name, doc in docs.items():
+        t = time.perf_counter()
+        got = extractor.extract_from_layout(*doc)
+        ms[name] = (time.perf_counter() - t) * 1e3
+        rows[name] = compare_fields(expected[name], result_record(got))
+    n = sum(r["fields"] for r in rows.values())
+    matched = sum(r["matched"] for r in rows.values())
+    for name, r in rows.items():
+        if r["misses"] or r["extra"]:
+            emit({"phase": tag, "doc": name, "misses": r["misses"], "extra": r["extra"]})
+    conf = [r["max_conf_diff"] for r in rows.values() if r["max_conf_diff"] is not None]
+    row = {"phase": tag, "docs": len(docs), "fields_expected": n, "fields_matched": matched,
+           "field_share": matched / max(n, 1),
+           "docs_equal": sum(r["fields_equal"] for r in rows.values()),
+           "form_types_equal": sum(r["form_type_equal"] for r in rows.values()),
+           "raw_responses_equal": sum(r["raw_response_equal"] for r in rows.values()),
+           "max_conf_diff": max(conf, default=None), "gated": "exact" if exact else min_share,
+           "ms_per_doc": ms, "forward": time_forward(extractor, buckets),
+           "nvidia_smi": smi}
+    failed = []
+    if exact and not all(r["fields_equal"] and r["form_type_equal"] and r["raw_response_equal"]
+                         and r["max_conf_diff"] <= 1e-3 for r in rows.values()):
+        failed.append("documents differ from the JAX record: " + ", ".join(
+            k for k, r in rows.items() if not (r["fields_equal"] and r["form_type_equal"]
+                                               and r["raw_response_equal"]
+                                               and r["max_conf_diff"] <= 1e-3)))
+    if matched < min_share * n:
+        failed.append(f"{matched} of {n} fields matched, under {min_share}")
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    return row
+
+
+def time_forward(extractor, buckets) -> dict:
+    """ms of the extractor's forward pass alone per token window, on
+    seeded tokens that fill it: CUDA events on the card (``cuda_ms``), the
+    host clock (one call after one untimed) on the CPU."""
+    import torch
+
+    from ocr_system_tpu_torch.models.layout_extractor import COORD_BUCKETS
+
+    rng = np.random.default_rng(SEED + 4)
+    dev = extractor.device
+    out = {}
+    for n in buckets:
+        ids = torch.from_numpy(rng.integers(1, extractor.charset.size, (1, n))).to(dev)
+        boxes = torch.from_numpy(np.sort(rng.integers(0, COORD_BUCKETS, (1, n, 4)), -1)).to(dev)
+        mask = torch.ones((1, n), dtype=torch.long, device=dev)
+
+        def fn():
+            with torch.inference_mode():
+                return extractor.model(ids, boxes, mask, extractor.dtype)
+
+        if dev.type == "cuda":
+            out[n] = {"ms": cuda_ms(fn, 10)}
+        else:
+            fn()
+            t = time.perf_counter()
+            fn()
+            out[n] = {"host_ms": (time.perf_counter() - t) * 1e3}
+    return out
+
+
+def phase_extract_e2e(orch, pages, expected: dict, tag: str, exact: bool,
+                      smi: str = "") -> dict:
+    """A wave of forms through the served engine, then its pages as one
+    document through ``ExtractionOrchestrator.fields_for``: fields, field
+    rows and validation report against the JAX orchestrator's record on
+    the JAX engine's own OCR of the same wave (``expected``). ``exact``:
+    the fields equal in key, value and type, in order, with form type and
+    raw_response, confidences within 1e-3; every field row's key, value,
+    type and page equal, its key and value boxes matched to the same text
+    within 0.5 px; the validation report equal. Else the field share is
+    reported, ungated. The kernels must launch on the card."""
+    from ocr_system_tpu_torch.engine.pipeline import document_result
+    from ocr_system_tpu_torch.utils import smoke
+
+    reset_counts()
+    t = time.perf_counter()
+    outs = orch.engine.process_pages(pages)
+    ocr_s = time.perf_counter() - t
+    launched = counts()
+    check_outputs(outs, pages)
+    t = time.perf_counter()
+    result, rows, report = orch.fields_for(document_result(outs))
+    extract_s = time.perf_counter() - t
+    got = {"result": smoke.result_record(result), "rows": smoke.rows_record(rows),
+           "report": smoke.report_record(report)}
+    fields = smoke.compare_fields(expected["result"], got["result"])
+    cmp_rows = smoke.compare_rows(expected["rows"], got["rows"], 1e-3, 0.5)
+    report_equal = got["report"] == expected["report"]
+    if exact:  # ungated, a missing field shifts every later row: not listed
+        for miss in cmp_rows["rows_differing"]:
+            emit({"phase": tag, "row_differs": miss})
+    row = {"phase": tag, "pages": len(pages), "fields_expected": fields["fields"],
+           "fields_matched": fields["matched"],
+           "field_share": fields["matched"] / max(fields["fields"], 1),
+           "fields_equal": fields["fields_equal"], "max_conf_diff": fields["max_conf_diff"],
+           "form_type": got["result"]["form_type"],
+           "form_type_equal": fields["form_type_equal"],
+           "raw_response_equal": fields["raw_response_equal"],
+           "rows": len(rows), "rows_differing": len(cmp_rows["rows_differing"]),
+           "rows_max_poly_diff": cmp_rows["max_poly_diff"],
+           "report_equal": report_equal,
+           "valid": report.valid_fields, "invalid": report.invalid_fields,
+           "needs_review": report.needs_review, "gated": exact,
+           "misses": fields["misses"], "extra": fields["extra"],
+           "launches": launched, "ocr_wall_s": ocr_s, "extract_wall_s": extract_s,
+           "nvidia_smi": smi}
+    failed = []
+    if exact and not (fields["fields_equal"] and fields["max_conf_diff"] <= 1e-3
+                      and fields["form_type_equal"] and fields["raw_response_equal"]
+                      and not cmp_rows["rows_differing"] and report_equal):
+        failed.append("fields, field rows or validation report differ from the JAX record")
+    if orch.engine.recognizer.device.type == "cuda" and (
+            launched["enhance"] <= 0 or launched["crop"] <= 0):
+        failed.append(f"kernels not on the path: {launched}")
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    return row
+
+
 def phase_host_ops(page, iters: int = 3) -> dict:
     """ms per page on this host for the host image operations the hybrid
     path runs (median of ``iters``): the Gaussian threshold (classical
@@ -657,7 +810,8 @@ def main() -> int:
     # ---- phase 2: the trained weights and the committed forms ----
     forms, expected = smoke.smoke_forms()
     hindi = smoke.hindi_forms()
-    files = [*smoke.TRAINED.values(), str(smoke.FORMS), str(smoke.HINDI), str(smoke.EXPECTED)]
+    files = [*smoke.TRAINED.values(), str(smoke.FORMS), str(smoke.HINDI), str(smoke.EXPECTED),
+             str(smoke.PACKAGE / "weights" / "extract.npz"), str(smoke.EXTRACT_EXPECTED)]
     emit({"phase": "assets", "mb": {os.path.relpath(f, REPO): os.path.getsize(f) / 1e6
                                     for f in files},
           "forms": list(forms.shape), "hindi_forms": list(hindi.shape),
@@ -723,7 +877,38 @@ def main() -> int:
     # ---- phase 6b: glue split's re-recognition, at both dtypes ----
     for engine, dtype in ((hybrid32, "float32"), (hybrid, "bfloat16")):
         emit(phase_glue(engine, dtype))
-    del hybrid32
+
+    # ---- phase 6c: field extraction, the trained 512 x 8 layout
+    # transformer, on the JAX record's OCR words (16 one-page documents and
+    # the Latin wave as one 8-page document), at both dtypes ----
+    from ocr_system_tpu_torch.core.config import Settings
+    from ocr_system_tpu_torch.extract.layout_model import LayoutModelExtractor, get_extractor
+    from ocr_system_tpu_torch.service.orchestrator import ExtractionOrchestrator
+
+    docs = smoke.extract_documents(expected)
+    want_ex = smoke.extract_expected()
+    extractors = {}
+    for dtype, tag in (("float32", "extract_f32"), ("bfloat16", "extract_bf16")):
+        t = time.perf_counter()
+        ex = extractors[dtype] = get_extractor(Settings(compute_dtype=dtype), device=dev)
+        blocks = getattr(getattr(ex, "model", None), "blocks", ())
+        if not (isinstance(ex, LayoutModelExtractor) and len(blocks) == 8
+                and blocks[0].heads == 8 and ex.model.norm.weight.numel() == 512):
+            raise AssertionError(f"get_extractor did not serve the trained 512 x 8 model: {ex}")
+        emit({**phase_extract(ex, docs, want_ex["docs"][dtype], tag, dtype == "float32",
+                              min_share=0.95, smi=smi),
+              "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 6d: page to fields: the served engine's Latin wave through
+    # the orchestrator's extract, save and validate stages ----
+    for engine, dtype in ((hybrid32, "float32"), (hybrid, "bfloat16")):
+        t = time.perf_counter()
+        orch = ExtractionOrchestrator(engine.settings, engine=engine,
+                                      extractor=extractors[dtype])
+        emit({**phase_extract_e2e(orch, as_pages(forms), want_ex["e2e"][dtype],
+                                  f"extract_e2e_{dtype}", dtype == "float32", smi=smi),
+              "elapsed_s": time.perf_counter() - t})
+    del hybrid32, extractors
 
     # ---- phase 7: the Latin wave, then the mixed wave, through the
     # scheduler (its det worker routes the second wave's Hindi pages while

@@ -33,6 +33,19 @@ Writes, in ocr_system_tpu_torch/:
   package's glue split (JaxOCREngine._split_glued, Latin rec weights)
   makes of them at float32 and at bfloat16: the boxes and decodes after
   the pass.
+- weights/extract.npz: checkpoints/extract (the layout extractor) through
+  core/weights.layout_state_dict, every tensor but LayerNorm's rounded to
+  bf16 (core/weights.bf16_but_norms): what the serving dtype computes
+  with, at half the bytes, zip-deflated (42.6 MB);
+- assets/extract_expected.json: the JAX package's LayoutModelExtractor
+  on the committed pages' float32 OCR words (utils/smoke.extract_documents:
+  each page as a one-page document, and the Latin wave as one 8-page
+  document), at float32 on the bf16-rounded parameters and at bfloat16,
+  and how the float32 checkpoint's fields differ from the rounded ones
+  (a report); and the JAX orchestrator's extract, save and validate
+  stages (on a temporary sqlite database) on the JAX hybrid engine's own
+  OCR of the Latin wave at each compute dtype: fields, field rows and
+  validation report.
 
 chip_smoke.py loads all of them and holds the port against the JAX
 package on the card. This tool imports JAX, so it stays outside the
@@ -201,6 +214,116 @@ def export_glued() -> list[Path]:
     return [ASSETS / "glued_lines.npz", ASSETS / "glued_lines_expected.json"]
 
 
+def rounded_bf16(variables):
+    """A flax tree with every parameter but LayerNorm's rounded to bf16 (and
+    kept float32): the values that a module at ``dtype=bfloat16`` computes
+    with, so float32 compute on these is what the port's float32 computes
+    on weights/extract.npz."""
+    import jax
+    import jax.numpy as jnp
+
+    def rnd(path, x):
+        if any(str(getattr(k, "key", "")).startswith("LayerNorm") for k in path):
+            return x
+        return jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
+
+    return jax.tree_util.tree_map_with_path(rnd, variables)
+
+
+def jax_fields_for(settings, engine, extractor, doc, workdir: Path,
+                   template: dict | None = None, custom_prompt: str | None = None) -> dict:
+    """The JAX orchestrator's extract, save and validate stages on one
+    DocumentOCRResult, on a fresh sqlite database in ``workdir``: the
+    extraction result, the field rows as saved, and the validation report
+    (utils/smoke records)."""
+    from ocr_system_tpu.db.connection import Database
+    from ocr_system_tpu.service.orchestrator import ExtractionOrchestrator, WorkflowState
+    from ocr_system_tpu_torch.utils import smoke
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    db = Database(workdir / "o.db")
+    try:
+        orch = ExtractionOrchestrator(
+            settings=settings.model_copy(update={"storage_root": str(workdir / "storage")}),
+            db=db, engine=engine, extractor=extractor)
+        doc_row = orch.repos.documents.create(
+            filename="doc.png", original_filename="doc.png", file_path=str(workdir / "doc.png"),
+            file_size=0, file_type="png")
+        ext = orch.repos.extractions.create_new_version(doc_row["id"], status="processing")
+        state = WorkflowState(document_id=doc_row["id"], file_path=doc_row["file_path"],
+                              filename="doc.png", extraction_id=ext["id"], ocr_result=doc,
+                              template=template, custom_prompt=custom_prompt)
+        reports = []
+        validate = orch.validation.validate_fields
+        orch.validation.validate_fields = lambda f: reports.append(validate(f)) or reports[-1]
+        orch._stage_extract(state)
+        orch._stage_save(state)
+        orch._stage_validate(state)
+        rows = orch.repos.fields.list_for_extraction(ext["id"])
+    finally:
+        db.close()
+    return {"result": smoke.result_record(state.extract_result),
+            "rows": smoke.rows_record(rows), "report": smoke.report_record(reports[0])}
+
+
+def export_extract() -> list[Path]:
+    """weights/extract.npz and assets/extract_expected.json (module doc)."""
+    import tempfile
+
+    import jax
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.core.mesh import build_mesh, mesh_context
+    from ocr_system_tpu.engine.pipeline import DocumentOCRResult, _build_engine, combine_markdown
+    from ocr_system_tpu.engine.preprocess import PageImage
+    from ocr_system_tpu.extract.layout_model import LayoutModelExtractor
+    from ocr_system_tpu_torch.core import weights
+    from ocr_system_tpu_torch.utils import smoke
+
+    tree = lambda v: jax.tree.map(np.asarray, v)  # noqa: E731
+    ckpt = str(REPO / "checkpoints/extract")
+    settings = {dt: JaxSettings(extract_checkpoint=ckpt, compute_dtype=dt,
+                                det_checkpoint=str(REPO / "checkpoints/det"),
+                                rec_checkpoint=str(REPO / "checkpoints/rec_latin"),
+                                rec_checkpoint_devanagari=str(REPO / "checkpoints/rec_devanagari"),
+                                **SMOKE_SETTINGS)
+                for dt in DTYPES}
+    full = LayoutModelExtractor(settings["float32"]).variables
+    rounded = rounded_bf16(full)
+    path = weights.save_npz(WEIGHTS / "extract.npz",
+                            weights.bf16_but_norms(weights.layout_state_dict(tree(rounded))))
+    extractors = {dt: LayoutModelExtractor(settings[dt], params=rounded) for dt in DTYPES}
+
+    forms, expected = smoke.smoke_forms()
+    docs = smoke.extract_documents(expected)
+    record: dict = {"jax": jax.__version__, "checkpoint": "checkpoints/extract",
+                    "input": "smoke_forms_expected.json float32 words (utils/smoke.extract_documents)",
+                    "docs": {}, "e2e": {}}
+    for dt, ex in extractors.items():
+        record["docs"][dt] = {name: smoke.result_record(ex.extract_from_layout(*doc))
+                              for name, doc in docs.items()}
+    unrounded = LayoutModelExtractor(settings["float32"], params=full)
+    record["float32_checkpoint_vs_rounded"] = {
+        name: smoke.compare_fields(record["docs"]["float32"][name],
+                                   smoke.result_record(unrounded.extract_from_layout(*doc)))
+        for name, doc in docs.items()}
+    pages = [PageImage(p, i + 1) for i, p in enumerate(forms)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for dt in DTYPES:
+            engine = _build_engine("hybrid", settings[dt])
+            with mesh_context(build_mesh("dp=1")):
+                outs = engine.process_pages(pages)
+            doc = DocumentOCRResult(
+                success=True, pages=outs, total_pages=len(outs),
+                combined_markdown=combine_markdown([o.markdown for o in outs]),
+                combined_html="\n<hr>\n".join(o.html for o in outs))
+            record["e2e"][dt] = jax_fields_for(settings[dt], engine, extractors[dt], doc,
+                                               Path(tmp) / dt)
+    out = ASSETS / "extract_expected.json"
+    out.write_text(json.dumps(record, indent=1, ensure_ascii=False) + "\n")
+    return [path, out]
+
+
 def main() -> int:
     import jax
 
@@ -249,8 +372,9 @@ def main() -> int:
             expected[key][dt] = [page_record(o, r, c) for o, r, c in zip(outs, routed, rescued)]
     (ASSETS / "smoke_forms_expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     glued = export_glued()
+    extract = export_extract()
     for path in (*written, ASSETS / "smoke_forms.npz", ASSETS / "hindi_forms.npz",
-                 ASSETS / "smoke_forms_expected.json", *glued):
+                 ASSETS / "smoke_forms_expected.json", *glued, *extract):
         print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
     for key in waves:
         for dt in DTYPES:

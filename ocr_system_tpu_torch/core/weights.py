@@ -14,9 +14,10 @@ port's modules. Conversion rules, each checked by the parity tests:
   ``weight``/``bias``/``running_mean``/``running_var``.
 
 Train-only parameters (DBNet's ``thresh_head``) are ignored.
-``save_npz``/``load_npz`` keep a flat numpy copy of a state dict;
-``load_weights`` fills a model from one of those, or with seeded random
-weights.
+``save_npz``/``load_npz`` keep a flat numpy copy of a state dict (numpy has
+no bf16: a bf16 tensor is stored as its uint16 bit pattern under its key
+plus ``BF16_SUFFIX``); ``load_weights`` fills a model from one of those,
+or with seeded random weights.
 """
 
 from __future__ import annotations
@@ -149,21 +150,78 @@ def svtr_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
     return _to_torch(out)
 
 
+def layout_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
+    """flax LayoutExtractor variables ->
+    ``models.layout_extractor.LayoutExtractor`` state dict."""
+    p = variables["params"]
+    out: dict[str, np.ndarray] = {
+        "tok_embed.weight": _a(p["tok_embed"]["embedding"]),
+        "coord_embed.weight": _a(p["coord_embed"]["embedding"]),
+        "pos_embed": _a(p["pos_embed"]),
+    }
+    i = 0
+    while f"block{i}" in p:
+        blk = p[f"block{i}"]
+        pre = f"blocks.{i}"
+        out.update(_prefixed(f"{pre}.norm1", _ln(blk["LayerNorm_0"])))
+        out.update(_prefixed(f"{pre}.norm2", _ln(blk["LayerNorm_1"])))
+        for name in ("qkv", "proj", "up", "down"):
+            out.update(_prefixed(f"{pre}.{name}", _dense(blk[name])))
+        i += 1
+    out.update(_prefixed("norm", _ln(p["LayerNorm_0"])))
+    for name in ("tag_head", "type_head", "conf_head", "form_head"):
+        out.update(_prefixed(name, _dense(p[name])))
+    return _to_torch(out)
+
+
+def bf16_but_norms(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every tensor rounded to bf16 but LayerNorm's (modules ``norm*``),
+    which stay float32: what a flax module at ``dtype=bfloat16,
+    param_dtype=float32`` computes with, so a model at bf16 compute reads
+    the same values from this copy as from the float32 one."""
+    return {k: v if _is_norm(k) else v.to(torch.bfloat16)
+            for k, v in state.items()}
+
+
+def _is_norm(key: str) -> bool:
+    parts = key.split(".")
+    return len(parts) >= 2 and parts[-2].startswith("norm")
+
+
 def _to_torch(d: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in d.items()}
 
 
+BF16_SUFFIX = ":bf16"
+
+
 def save_npz(path: str | Path, state: Mapping[str, torch.Tensor]) -> Path:
-    """Flat numpy copy of a state dict (one array per key)."""
+    """Flat, zip-deflated numpy copy of a state dict (one array per key; a
+    bf16 tensor as its uint16 bit pattern under ``key + BF16_SUFFIX``)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state.items()})
+    arrays = {}
+    for k, v in state.items():
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            arrays[k + BF16_SUFFIX] = v.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arrays[k] = v.numpy()
+    np.savez_compressed(path, **arrays)
     return path
 
 
 def load_npz(path: str | Path) -> dict[str, torch.Tensor]:
+    out = {}
     with np.load(Path(path)) as z:
-        return {k: torch.from_numpy(z[k].copy()) for k in z.files}
+        for k in z.files:
+            a = z[k].copy()
+            if k.endswith(BF16_SUFFIX):
+                out[k[: -len(BF16_SUFFIX)]] = torch.from_numpy(a.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                out[k] = torch.from_numpy(a)
+    return out
 
 
 def load_weights(model: torch.nn.Module, checkpoint: str, state_dict, seed: int) -> None:

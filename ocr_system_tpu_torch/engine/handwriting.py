@@ -1,7 +1,7 @@
-"""Handwriting / signature region detection from pixels (port of
-ocr_system_tpu/engine/handwriting.py; pairing the regions with their
-labels, ``handwriting_to_fields`` and ``squiggle_overrides``, belongs to
-extraction, a later slice).
+"""Handwriting / signature region detection from pixels, and the pairing
+of the regions with their labels into signature fields
+(``handwriting_to_fields``, merged by ``squiggle_overrides``) (port of
+ocr_system_tpu/engine/handwriting.py).
 
 Host-side geometric pass on the page components that selection marks
 share (``selection_marks.page_components``): components that are
@@ -17,7 +17,9 @@ What distinguishes a squiggle from everything else on a form page:
     rows, wider than tall.
 
 Emits ``{"type": "handwriting", "content": "", "confidence", "polygon",
-"page_number"}`` layout boxes, in component order.
+"page_number"}`` layout boxes, in component order; the orchestrator pairs them with
+signature-keyword labels into ``signature`` fields (value "signed") that
+the signature validator accepts.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import unicodedata
 import numpy as np
 
 from ocr_system_tpu_torch.engine.selection_marks import page_components
+from ocr_system_tpu_torch.extract.postfix import _cer, clean_key
 
 MIN_W = 40
 MIN_H = 12
@@ -36,6 +39,27 @@ MIN_FILL = 0.015
 MAX_FILL = 0.45
 # line-likeness: fraction of ink captured by the densest 3 rows (or cols)
 MAX_PROFILE_CONC = 0.75
+
+SIGNATURE_KEYWORDS = (
+    "signature", "signed", "sign here", "initials", "authorised by",
+    "authorized by", "हस्ताक्षर",
+)
+
+
+def _has_signature_keyword(content: str) -> bool:
+    """Substring match plus a FUZZY token match for the long keywords:
+    rec noise on the label itself ('Signoturo') must not demote a true
+    signature label to the nearest-label fallback, which can then drift
+    to a neighboring VALUE word (measured: seed-6260 doc 4, 'Signature'
+    squiggle labeled 'item monthly')."""
+    if any(k in content for k in SIGNATURE_KEYWORDS):
+        return True
+    tokens = [t for t in content.split() if len(t) >= 6]
+    return any(
+        _cer(k, t) <= 0.25
+        for t in tokens
+        for k in ("signature", "initials", "authorised", "authorized")
+    )
 
 
 def _is_clean_text(
@@ -175,3 +199,225 @@ def detect_handwriting(
             }
         )
     return marks
+
+
+def squiggle_overrides(
+    sf: dict,
+    existing_value: str | None,
+    existing_conf: float = 1.0,
+    other_keys: set[str] | frozenset[str] = frozenset(),
+) -> bool:
+    """Merge policy for a squiggle field vs an extractor pair on the same
+    key — the ONE decision shared by serving (orchestrator) and both eval
+    paths, so they cannot drift (ADVICE r3):
+
+    - no existing value: fill.
+    - keyword label ('Signature:'): override unless the existing value
+      reads as clean printed text (a real printed name/date under the
+      label survives — ADVICE r3).
+    - nearest-label guess: override only when the squiggle is glued to its
+      label (label_gap <= 1.5 label heights) AND the existing value is
+      either soup or a fragment of ANOTHER extracted key (the extractor
+      stole the next label's words — diag r4 'window: Tizolu' family). A
+      genuine printed value never matches a neighboring key, so it
+      survives even when handwriting detection false-positives next to
+      its label (diag r4 doc 9: a matra cluster adjacent to a label whose
+      true value '314540' sat farther right). Unconditional override was
+      measured in r3 to destroy true Devanagari fields.
+    """
+    if existing_value is None or not existing_value.strip():
+        return True
+    if sf.get("keyword_label"):
+        return not _is_clean_text(existing_value, existing_conf)
+    if float(sf.get("label_gap", 99.0)) > 1.5:
+        return False
+    if not _is_clean_text(existing_value, existing_conf):
+        return True
+    v = " ".join(existing_value.lower().split())
+    own = " ".join(str(sf.get("field_key", "")).lower().split())
+    return any(
+        k != own and (v in k or k in v) for k in other_keys if k.strip()
+    )
+
+
+def handwriting_to_fields(
+    hand_boxes: list[dict], layout_boxes: list[dict]
+) -> list[dict]:
+    """Pair signature-keyword labels with nearby handwriting boxes ->
+    signature field dicts (value "signed", accepted by validate_signature).
+    Search: for each label word run containing a keyword, a handwriting box
+    to its right on the same row, or below it, within ~3 label heights."""
+    words = [b for b in layout_boxes
+             if b.get("type") in ("word", "line")
+             and b.get("content", "").strip()]
+    fields: list[dict] = []
+    used: set[int] = set()
+    for wb in words:
+        content = wb["content"].strip().lower()
+        if not _has_signature_keyword(content):
+            continue
+        wx = wb["polygon"][0::2]
+        wy = wb["polygon"][1::2]
+        w_x0, w_x1 = min(wx), max(wx)
+        w_y0, w_y1 = min(wy), max(wy)
+        w_h = max(w_y1 - w_y0, 1.0)
+        best = None
+        best_d = None
+        for i, hb in enumerate(hand_boxes):
+            if i in used or hb.get("page_number") != wb.get("page_number"):
+                continue
+            hx = hb["polygon"][0::2]
+            hy = hb["polygon"][1::2]
+            h_x0, h_y0 = min(hx), min(hy)
+            h_yc = (min(hy) + max(hy)) / 2.0
+            same_row = abs(h_yc - (w_y0 + w_y1) / 2.0) < w_h * 1.5
+            right_d = h_x0 - w_x1
+            below = h_y0 - w_y1
+            if same_row and -w_h <= right_d <= w_h * 20:
+                d = max(right_d, 0.0)
+            elif (
+                -w_h * 2 <= below <= w_h * 3.5
+                # under the label, not off to its left: a y-overlapping
+                # label RIGHT of the squiggle used to win here at d=w_h
+                # and beat the true same-row label (diag r4 doc 5)
+                and w_x0 - w_h <= h_x0 < w_x1 + w_h * 20
+            ):
+                d = max(below, 0.0) + w_h  # below: small penalty
+            else:
+                continue
+            if best_d is None or d < best_d:
+                best, best_d = i, d
+        if best is None:
+            continue
+        used.add(best)
+        key = clean_key(wb["content"])
+        fields.append(
+            {
+                "field_key": key,
+                "field_value": "signed",
+                "field_type": "signature",
+                "confidence": hand_boxes[best]["confidence"],
+                "page_number": wb.get("page_number", 1),
+                # explicit signature keyword: strong enough to OVERRIDE an
+                # extractor pair for the same key downstream
+                "keyword_label": True,
+            }
+        )
+    # second pass: a pixel-verified squiggle with NO keyword label still
+    # belongs to its nearest label — forms label signature lines with
+    # arbitrary keys ('Authorised', a name, a custom field), and the
+    # reference's extractor pairs by layout, not by keyword
+    # (gemini_service.py:235-364 sees the squiggle next to its label).
+    # The box itself is the evidence; the label just names the field.
+    # trailing-colon label runs ('Position:'): anything sitting just right
+    # of one on the same row is that label's VALUE, not a free label
+    colon_labels = []
+    for wb in words:
+        txt = wb["content"].strip()
+        if txt.endswith(":"):
+            xs_, ys_ = wb["polygon"][0::2], wb["polygon"][1::2]
+            colon_labels.append(
+                (wb.get("page_number"), max(xs_), min(ys_), max(ys_))
+            )
+
+    def _is_value_of_colon_label(wb) -> bool:
+        wx = wb["polygon"][0::2]
+        wy = wb["polygon"][1::2]
+        w_x0 = min(wx)
+        w_yc = (min(wy) + max(wy)) / 2.0
+        w_h = max(max(wy) - min(wy), 1.0)
+        for pg, lx1, ly0, ly1 in colon_labels:
+            if pg != wb.get("page_number"):
+                continue
+            if ly0 - 0.3 * w_h <= w_yc <= ly1 + 0.3 * w_h and (
+                -0.5 * w_h <= w_x0 - lx1 <= 4.0 * w_h
+            ):
+                return True
+        return False
+
+    for i, hb in enumerate(hand_boxes):
+        if i in used:
+            continue
+        hx = hb["polygon"][0::2]
+        hy = hb["polygon"][1::2]
+        h_x0, h_y0 = min(hx), min(hy)
+        h_yc = (min(hy) + max(hy)) / 2.0
+        best_wb = None
+        best_d = None
+        for wb in words:
+            if hb.get("page_number") != wb.get("page_number"):
+                continue
+            # a run that already carries an inline value ('तोनीह: 2009-04-15',
+            # 'lenu mark: carlos olsen') is a COMPLETE field, not a label
+            # awaiting a signature — pairing the squiggle to it both fabricates
+            # a field and orphans the true label (measured on forms_e2e)
+            txt = wb["content"].strip()
+            cp = txt.find(":")
+            if 0 <= cp < len(txt) - 1 and txt[cp + 1:].strip():
+                continue
+            # VALUE-shaped runs are not labels: digit-dominant text (a
+            # phone/date/amount box) or a long det row-merge (>5 tokens)
+            # paired a squiggle into a fabricated field (diag r4 doc 5:
+            # squiggle -> '(919) 214-5410' and a whole merged row)
+            n_digits = sum(c.isdigit() for c in txt)
+            if n_digits > 0.4 * max(len(txt.replace(" ", "")), 1):
+                continue
+            if len(txt.split()) > 5 or "@" in txt:
+                continue
+            # sitting right of a 'Key:' run on the same row -> it's that
+            # key's value ('Position:' | 'item monthly' | squiggle below:
+            # the squiggle must not steal 'item monthly' as its label —
+            # measured seed-6260 doc 4, fabricated pair + orphaned truth)
+            if _is_value_of_colon_label(wb):
+                continue
+            # (measured, rejected: also skipping labels with any printed
+            # same-row right neighbor — multi-word labels get skipped and
+            # the pairing falls through to VALUE words, 35/8 -> 35/10
+            # exact/spurious on the forms_e2e diagnostic)
+            wx = wb["polygon"][0::2]
+            wy = wb["polygon"][1::2]
+            w_x0, w_x1 = min(wx), max(wx)
+            w_y0, w_y1 = min(wy), max(wy)
+            w_h = max(w_y1 - w_y0, 1.0)
+            same_row = abs(h_yc - (w_y0 + w_y1) / 2.0) < w_h * 1.5
+            right_d = h_x0 - w_x1
+            below = h_y0 - w_y1
+            if same_row and -w_h <= right_d <= w_h * 10:
+                d = max(right_d, 0.0)
+            elif (
+                -w_h * 2 <= below <= w_h * 3.0
+                # same under-the-label constraint as the keyword pass
+                and w_x0 - w_h <= h_x0 < w_x1 + w_h * 10
+            ):
+                d = max(below, 0.0) + w_h
+            else:
+                continue
+            if best_d is None or d < best_d:
+                best_wb, best_d = wb, d
+        if best_wb is None:
+            continue
+        used.add(i)
+        # label word runs often end with the key's last word; take the
+        # trailing "Key:"-like text (strip a value if the run merged one)
+        key = clean_key(best_wb["content"])
+        w_h = max(
+            max(best_wb["polygon"][1::2]) - min(best_wb["polygon"][1::2]),
+            1.0,
+        )
+        fields.append(
+            {
+                "field_key": key,
+                "field_value": "signed",
+                "field_type": "signature",
+                "confidence": round(hb["confidence"] * 0.8, 4),
+                "page_number": best_wb.get("page_number", 1),
+                # nearest-label guess: fills a missing field downstream but
+                # must NOT override an extractor pair for the same key —
+                # UNLESS the squiggle hugs the label (label_gap, in label
+                # heights): nothing printed can fit between them, so a
+                # same-key extractor pair must be misassigned distant text
+                "keyword_label": False,
+                "label_gap": round(float(best_d) / w_h, 3),
+            }
+        )
+    return fields

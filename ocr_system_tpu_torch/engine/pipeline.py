@@ -507,16 +507,23 @@ class TorchOCREngine:
 
         scheduler = PageScheduler(self, self.settings)
         outputs = scheduler.process(pages)
-        return DocumentOCRResult(
-            success=all(p.success for p in outputs) and bool(outputs),
-            pages=outputs,
-            combined_markdown=combine_markdown([p.markdown for p in outputs]),
-            combined_html="\n<hr>\n".join(p.html for p in outputs),
-            total_pages=len(outputs),
-            processing_time_ms=(time.perf_counter() - t0) * 1000.0,
-            error=None if outputs else "no pages decoded",
-            stage_times_ms=scheduler.timer.as_ms(),
-        )
+        doc = document_result(outputs)
+        doc.processing_time_ms = (time.perf_counter() - t0) * 1000.0
+        doc.stage_times_ms = scheduler.timer.as_ms()
+        return doc
+
+
+def document_result(outputs: list[OCROutput]) -> DocumentOCRResult:
+    """Pages' OCROutputs combined into one document, as
+    ``process_document`` combines its pages."""
+    return DocumentOCRResult(
+        success=all(p.success for p in outputs) and bool(outputs),
+        pages=list(outputs),
+        combined_markdown=combine_markdown([p.markdown for p in outputs]),
+        combined_html="\n<hr>\n".join(p.html for p in outputs),
+        total_pages=len(outputs),
+        error=None if outputs else "no pages decoded",
+    )
 
 
 def _masked(quads_list: list[np.ndarray], sel_list: list[list[int]]) -> list[np.ndarray]:

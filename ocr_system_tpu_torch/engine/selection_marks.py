@@ -1,7 +1,7 @@
 """Selection-mark (checkbox) detection: geometric CC analysis on the host
-(port of ocr_system_tpu/engine/selection_marks.py, its cv2 branch; the
-pairing of marks with their labels, ``marks_to_fields``, belongs to
-extraction, a later slice).
+(port of ocr_system_tpu/engine/selection_marks.py, its cv2 branch), and
+the pairing of marks with their labels into checkbox fields
+(``marks_to_fields``).
 
   ink mask (adaptive MEAN threshold) -> connected components in OpenCV's
   label order -> near-square, box-sized components with high BORDER
@@ -108,6 +108,77 @@ def detect_selection_marks(
             }
         )
     return marks
+
+
+def marks_to_fields(marks: list[dict], layout_boxes: list[dict]) -> list[dict]:
+    """Pair each selection mark with its text label -> checkbox field dicts
+    `{"field_key", "field_value" ("yes"/"no"), "field_type": "checkbox",
+    "confidence", "page_number"}` — what the reference's Gemini emits when it
+    reads '☑ Male' (and validate_checkbox accepts, validation_service
+    CHECKBOX_VALUES). Label = nearest same-row word run, preferring text to
+    the RIGHT of the mark (the dominant forms convention: '[x] Option')."""
+    words = [b for b in layout_boxes
+             if b.get("type") == "word" and b.get("content", "").strip()]
+    fields: list[dict] = []
+    for m in marks:
+        mx = m["polygon"][0::2]
+        my = m["polygon"][1::2]
+        m_x0, m_x1 = min(mx), max(mx)
+        m_yc = (min(my) + max(my)) / 2.0
+        m_h = max(max(my) - min(my), 1.0)
+        same_row = [
+            w for w in words
+            if w.get("page_number") == m.get("page_number")
+            and abs((min(w["polygon"][1::2]) + max(w["polygon"][1::2])) / 2.0
+                    - m_yc) < m_h * 1.2
+        ]
+        if not same_row:
+            continue
+
+        def gap(w):
+            wx = w["polygon"][0::2]
+            left_gap = min(wx) - m_x1       # text to the right of the mark
+            right_gap = m_x0 - max(wx)      # text to the left of the mark
+            if left_gap >= 0:
+                return left_gap             # prefer right-side labels
+            if right_gap >= 0:
+                return right_gap + m_h * 2  # left-side: pay a small penalty
+            return m_h * 10                 # overlapping text: last resort
+
+        nearest = min(same_row, key=gap)
+        if gap(nearest) > m_h * 8:
+            continue  # nothing plausibly labels this mark
+        # extend the label along contiguous words on the same side
+        direction = 1 if min(nearest["polygon"][0::2]) >= m_x1 else -1
+        run = [nearest]
+        candidates = sorted(
+            (w for w in same_row if w is not nearest),
+            key=lambda w: min(w["polygon"][0::2]),
+        )
+        if direction < 0:
+            candidates = candidates[::-1]
+        edge = (max if direction > 0 else min)(run[0]["polygon"][0::2])
+        for w in candidates:
+            wx0, wx1 = min(w["polygon"][0::2]), max(w["polygon"][0::2])
+            if direction > 0 and 0 <= wx0 - edge <= m_h * 1.5:
+                run.append(w)
+                edge = wx1
+            elif direction < 0 and 0 <= edge - wx1 <= m_h * 1.5:
+                run.insert(0, w)
+                edge = wx0
+        label = " ".join(w["content"] for w in run).strip().rstrip(":")
+        if not label:
+            continue
+        fields.append(
+            {
+                "field_key": label,
+                "field_value": "yes" if m["state"] == "selected" else "no",
+                "field_type": "checkbox",
+                "confidence": m["confidence"],
+                "page_number": m.get("page_number", 1),
+            }
+        )
+    return fields
 
 
 def filter_marks_against_words(

@@ -4,8 +4,10 @@ export_torch_weights.py), the committed Latin and Hindi synthetic forms
 and glued-lines page and the JAX package's outputs on them (``assets/``),
 and synthetic pages and checkboxes drawn with numpy from a seed; the
 record and comparison of a page's layout, routing and rescues against
-those outputs; and the bf16 agreement rules that chip_smoke.py and the
-tests share."""
+those outputs; the extraction documents built from those outputs and the
+record and comparison of their fields, field rows and validation reports
+against the JAX package's (``assets/extract_expected.json``); and the bf16
+agreement rules that chip_smoke.py and the tests share."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
-from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, get_engine
+from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, combine_markdown, get_engine
 
 PACKAGE = Path(__file__).resolve().parents[1]
 TRAINED = {
@@ -39,6 +41,7 @@ HINDI = PACKAGE / "assets" / "hindi_forms.npz"
 EXPECTED = PACKAGE / "assets" / "smoke_forms_expected.json"
 GLUED = PACKAGE / "assets" / "glued_lines.npz"
 GLUED_EXPECTED = PACKAGE / "assets" / "glued_lines_expected.json"
+EXTRACT_EXPECTED = PACKAGE / "assets" / "extract_expected.json"
 
 # A bf16 kernel output equals its plain version's float32 result rounded to
 # bf16, except by at most one bf16 ulp on at most this share of elements:
@@ -255,3 +258,125 @@ def text_share(expected: list[dict], got: list[dict]) -> float:
     and text), over all pages."""
     rows = [compare_to_expected(e, g) for e, g in zip(expected, got)]
     return sum(r["matched"] for r in rows) / max(sum(r["words"] for r in rows), 1)
+
+
+# ---- extraction ----
+
+def extract_documents(expected: dict) -> dict[str, tuple[list[dict], tuple[float, float], str]]:
+    """The extraction inputs that the JAX record (``extract_expected.json``)
+    was made from: the JAX package's float32 OCR words of each committed
+    page as a one-page document ("pages/1" .. "pages/8" for the Latin wave,
+    "mixed/1" .. "mixed/8" for the mixed wave), and the Latin wave as one
+    8-page document ("pages"). Each is (word boxes, page size, markdown),
+    the first arguments of ``extract_from_layout``."""
+    side = float(expected["side"])
+
+    def words(rec: dict, page: int) -> list[dict]:
+        return [{"type": "word", "content": w["content"], "polygon": w["polygon"],
+                 "page_number": page} for w in rec["word"]]
+
+    docs = {}
+    for wave in ("pages", "mixed"):
+        for rec in expected[wave]["float32"]:
+            docs[f"{wave}/{rec['page_number']}"] = (words(rec, 1), (side, side), rec["markdown"])
+    latin = expected["pages"]["float32"]
+    docs["pages"] = ([w for rec in latin for w in words(rec, rec["page_number"])],
+                     (side, side), combine_markdown([rec["markdown"] for rec in latin]))
+    return docs
+
+
+def extract_expected() -> dict:
+    """The JAX package's extraction record (export_torch_weights.py)."""
+    return json.loads(EXTRACT_EXPECTED.read_text())
+
+
+def result_record(result) -> dict:
+    """An ExtractionResult (of either package) as its JSON record: each
+    field as [key, value, type, confidence], the form type, language,
+    raw_response and token count."""
+    return {"fields": [[f.field_key, f.field_value, f.field_type, f.confidence]
+                       for f in result.fields],
+            "form_type": result.form_type, "language": result.language,
+            "raw_response": result.raw_response, "token_count": result.token_count}
+
+
+ROW_KEYS = ("field_key", "field_value", "field_type", "confidence", "key_bbox", "value_bbox",
+            "page_number")
+REPORT_KEYS = ("is_valid", "message", "severity", "corrected_value", "needs_review",
+               "confidence_level")
+
+
+def rows_record(rows: list[dict]) -> list[dict]:
+    """Field rows (the save stage's) as JSON records."""
+    return [{k: r[k] for k in ROW_KEYS} for r in rows]
+
+
+def report_record(report) -> dict:
+    """A validation report (of either package) as its JSON record, its
+    results in row order."""
+    return {"total_fields": report.total_fields, "valid_fields": report.valid_fields,
+            "invalid_fields": report.invalid_fields, "needs_review": report.needs_review,
+            "results": [{k: getattr(r, k) for k in REPORT_KEYS}
+                        for r in report.results.values()]}
+
+
+def compare_fields(expected: dict, got: dict) -> dict:
+    """One document's extraction record against the JAX one: whether the
+    fields are equal in key, value and type, in order
+    (``fields_equal``), the largest confidence difference between them
+    (None unless they are), whether the form type and raw_response are
+    equal, and the share of the expected fields that a got field equals in
+    key, value and type, each used once (``matched`` of ``fields``);
+    ``misses`` lists the expected fields no got field matched."""
+    want = [tuple(f[:3]) for f in expected["fields"]]
+    have = [tuple(f[:3]) for f in got["fields"]]
+    free = list(have)
+    misses = []
+    for f in want:
+        if f in free:
+            free.remove(f)
+        else:
+            misses.append(list(f))
+    equal = want == have
+    return {"fields": len(want), "matched": len(want) - len(misses), "misses": misses,
+            "extra": [list(f) for f in free], "fields_equal": equal,
+            "max_conf_diff": max((abs(a[3] - b[3]) for a, b in zip(expected["fields"],
+                                                                     got["fields"])),
+                                 default=0.0) if equal else None,
+            "form_type_equal": expected["form_type"] == got["form_type"],
+            "raw_response_equal": expected["raw_response"] == got["raw_response"]}
+
+
+def _max_poly_diff(a: dict | None, b: dict | None) -> float | None:
+    """Largest coordinate difference of two bbox matches' polygons, None if
+    only one matched or their texts or pages differ."""
+    if a is None or b is None:
+        return 0.0 if a is b else None
+    if (a["matched_text"], a["page"]) != (b["matched_text"], b["page"]):
+        return None
+    return max(abs(x - y) for x, y in zip(a["polygon"], b["polygon"]))
+
+
+def compare_rows(expected: list[dict], got: list[dict], conf_tol: float,
+                 poly_tol: float) -> dict:
+    """Field rows against the JAX package's: equal in count, and row for row
+    in key, value, type and page, confidences within ``conf_tol``, key and
+    value boxes matched to the same text on the same page with polygons
+    within ``poly_tol`` pixels. Returns the rows that differ and the
+    largest confidence and polygon differences."""
+    bad, conf_d, poly_d = [], 0.0, 0.0
+    for i, (e, g) in enumerate(zip(expected, got)):
+        same = all(e[k] == g[k] for k in ("field_key", "field_value", "field_type",
+                                           "page_number"))
+        conf_d = max(conf_d, abs(e["confidence"] - g["confidence"]))
+        polys = [_max_poly_diff(e[k], g[k]) for k in ("key_bbox", "value_bbox")]
+        if not same or None in polys or abs(e["confidence"] - g["confidence"]) > conf_tol:
+            bad.append({"row": i, "expected": e, "got": g})
+            continue
+        poly_d = max(poly_d, *polys)
+        if max(polys) > poly_tol:
+            bad.append({"row": i, "expected": e, "got": g})
+    if len(expected) != len(got):
+        bad.append({"rows": [len(expected), len(got)]})
+    return {"rows": len(expected), "rows_differing": bad, "max_conf_diff": conf_d,
+            "max_poly_diff": poly_d}

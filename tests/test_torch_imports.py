@@ -2,7 +2,8 @@
 import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, safetensors
 and the JAX package all refused: every module of the port imports, and
 chip_smoke.py's phases run at a tiny size on the committed weights and
-forms, the hybrid engine's and the glue split's among them."""
+forms, the hybrid engine's, the glue split's and field extraction's
+among them."""
 
 import ast
 import os
@@ -83,7 +84,31 @@ assert mix["devanagari_words"] > 0 and mix["devanagari_dispatch"]["dispatches"] 
 assert sum(r["confidence"][0] for r in mix["rescued"]) > 0 and all(mix["rescued_ok"]), mix
 assert mix["hindi_bar_met"] and mix["hindi_text_share"] == 1.0, mix
 assert set(mix["stage_ms"]) >= {"route", "rescue"}, mix
-print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"])
+# field extraction: the trained extractor on two committed documents
+# against the JAX record, then page to fields on the tiny hybrid engine,
+# held against its own first run
+from ocr_system_tpu_torch.core.config import Settings
+from ocr_system_tpu_torch.engine.pipeline import document_result
+from ocr_system_tpu_torch.extract.layout_model import get_extractor
+from ocr_system_tpu_torch.service.orchestrator import ExtractionOrchestrator
+
+docs = smoke.extract_documents(expected)
+docs = {k: docs[k] for k in ("pages/4", "mixed/3")}
+want = smoke.extract_expected()["docs"]
+ex = get_extractor(Settings(compute_dtype="float32"), device="cpu")
+x32 = cs.phase_extract(ex, docs, want["float32"], "extract_f32", True, buckets=(256,))
+x16 = cs.phase_extract(get_extractor(Settings(), device="cpu"), docs, want["bfloat16"],
+                       "extract_bf16", False, min_share=0.95, buckets=(256,))
+orch = ExtractionOrchestrator(hybrid.settings, engine=hybrid, extractor=ex)
+r, rows, rep = orch.fields_for(document_result(hybrid.process_pages(pages(small))))
+own = {"result": smoke.result_record(r), "rows": smoke.rows_record(rows),
+       "report": smoke.report_record(rep)}
+e2e = cs.phase_extract_e2e(orch, pages(small), own, "extract_e2e", True)
+assert x32["docs_equal"] == 2 and x32["forward"][256]["host_ms"] > 0, x32
+assert x16["field_share"] >= 0.95, x16
+assert e2e["fields_equal"] and e2e["report_equal"] and e2e["rows"] > 0, e2e
+print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"],
+      e2e["launches"])
 ''' % (BLOCKED,)
 
 

@@ -35,7 +35,18 @@ float32, 95% at bf16, with its forward pass timed at each token window;
 then the served engine's Latin wave goes through
 ``ExtractionOrchestrator.fields_for`` (extract, save and validate stages)
 and its fields, field rows and validation report are held against the JAX
-orchestrator's at float32 (reported at bf16).
+orchestrator's at float32 (reported at bf16). The service: the port's
+``create_app`` on ``App.serve`` on 127.0.0.1 (a real socket) with the
+served engine, the trained extractor and a temporary storage root and
+database takes ``assets/service_upload.pdf`` (the 8 Latin forms as a
+scanned PDF) as a multipart upload with ``auto_extract``; once the
+polled extraction completes, its fields, rows, validation counts and
+JSON and CSV exports are held against the JAX application's
+(``assets/service_expected.json``: equal at float32, the share reported
+at bf16), the XLSX, PDF and page-image responses are checked, ``/health``
+and ``/api/stats/devices`` must name the card, and the rasterization
+tier that served, the upload's wall seconds and the processing log's
+stage times are printed.
 
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
@@ -518,12 +529,244 @@ def phase_extract_e2e(orch, pages, expected: dict, tag: str, exact: bool,
     return row
 
 
+def serve(app) -> tuple[str, object]:
+    """``app.serve`` on 127.0.0.1 (a free port) in a thread of its own;
+    returns the server's URL and a function that stops it."""
+    import asyncio
+    import threading
+
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    holder: dict = {}
+
+    def run():
+        asyncio.set_event_loop(loop)
+
+        async def main():
+            holder["stop"] = asyncio.Event()
+            server = await app.serve("127.0.0.1", 0)
+            holder["port"] = server.sockets[0].getsockname()[1]
+            started.set()
+            async with server:
+                await holder["stop"].wait()
+
+        try:
+            loop.run_until_complete(main())
+        finally:
+            loop.close()
+
+    thread = threading.Thread(target=run, daemon=True, name="smoke-server")
+    thread.start()
+    if not started.wait(30):
+        raise AssertionError("the server did not start")
+
+    def stop():
+        loop.call_soon_threadsafe(holder["stop"].set)
+        thread.join(30)
+
+    return f"http://127.0.0.1:{holder['port']}", stop
+
+
+def http(url: str, method: str = "GET", body: bytes | None = None,
+         ctype: str = "") -> tuple[int, dict, bytes]:
+    """One request over the socket: status, headers, body."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def ok_json(url: str, method: str = "GET", body: bytes | None = None, ctype: str = ""):
+    status, _, data = http(url, method, body, ctype)
+    if status >= 300:
+        raise AssertionError(f"{method} {url}: {status} {data[:300]!r}")
+    return json.loads(data)
+
+
+def pil_version() -> str | None:
+    """PIL's version where it imports here (the renderer tier of a PDF
+    needs it), else None."""
+    try:
+        import PIL
+    except ImportError:
+        return None
+    return PIL.__version__
+
+
+def raster_tiers_agree(data: bytes, dpi: int) -> dict:
+    """The upload's pages by the embedded-image tier, and by the renderer
+    where PIL imports: whether they are pixel for pixel the same."""
+    from ocr_system_tpu_torch.engine import pdf, preprocess
+
+    embedded = preprocess._pdf_extract_images(data)
+    if pil_version() is None:
+        return {"embedded_pages": len(embedded), "render": "no PIL"}
+    rendered = pdf.render_pdf(data, dpi=dpi)
+    return {"embedded_pages": len(embedded), "render_pages": len(rendered),
+            "equal": len(embedded) == len(rendered) and all(
+                a.shape == b.shape and np.array_equal(a, b) for a, b in zip(embedded, rendered))}
+
+
+def service_app(engine, extractor, root: str, dtype: str):
+    """The port's ``create_app`` on ``engine`` and ``extractor``, at the
+    upload's rasterization dpi, on a storage root and database under
+    ``root``, its per-client rate limit raised for the poller; returns the
+    app and its orchestrator."""
+    from ocr_system_tpu_torch.api.app import ApiContext, create_app
+    from ocr_system_tpu_torch.db.connection import Database
+    from ocr_system_tpu_torch.service.orchestrator import ExtractionOrchestrator
+    from ocr_system_tpu_torch.utils import smoke
+
+    s = engine.settings.model_copy(update={
+        "storage_root": os.path.join(root, dtype), "compute_dtype": dtype,
+        "database_path": os.path.join(root, dtype, "app.db"),
+        "pdf_raster_dpi": smoke.SERVICE_DPI, "warmup_on_start": False,
+        # the phase polls ten times a second: above the default budgets of
+        # 60 requests a minute and 1000 an hour per client
+        "rate_limit_per_minute": 1_000_000, "rate_limit_per_hour": 1_000_000})
+    db = Database(s.db_path)
+    orch = ExtractionOrchestrator(s, engine=engine, extractor=extractor, db=db)
+    return create_app(ApiContext(settings=s, db=db, orchestrator=orch)), orch
+
+
+def phase_service(app, orch, data: bytes, expected: dict, tag: str, exact: bool,
+                  smi: str = "", timeout_s: float = 300.0) -> dict:
+    """An upload through the HTTP API on a real socket: ``App.serve`` on
+    127.0.0.1, the PDF POSTed as multipart with ``auto_extract``, the
+    extraction polled through ``/status`` to its end; then the current
+    extraction, its four exports and the first processed page image. The
+    fields, their rows, the validation counts and the JSON and CSV exports
+    are held against the JAX application's record (``expected``): with
+    ``exact``, fields equal in key, value, type and order, confidences
+    within 1e-3, boxes within 0.5 px, validation counts, JSON and CSV
+    (masked; floats within 1e-3) equal; else the field share is reported.
+    Always: the XLSX opens as a zip with its sheet, the PDF export runs
+    from ``%PDF-`` to ``%%EOF``, the page image is a JPEG, ``/health`` and
+    ``/api/stats/devices`` answer 200 and name the engine's CUDA device,
+    and on the card both kernels launch during the upload. Reports the
+    rasterization tier that served, whether PIL imports, the upload's wall
+    seconds and pages/s, and the stage times of the processing log; the
+    upload's two rasterization tiers (where PIL imports) must agree pixel
+    for pixel."""
+    import io
+    import zipfile
+
+    import torch
+
+    from ocr_system_tpu_torch.engine import preprocess
+    from ocr_system_tpu_torch.utils import smoke
+
+    url, stop = serve(app)
+    failed = []
+    try:
+        body, ctype = smoke.multipart(data, smoke.SERVICE_UPLOAD.name, {"auto_extract": "true"})
+        reset_counts()
+        preprocess.RASTER_TIERS.clear()
+        t0 = time.perf_counter()
+        doc = ok_json(url + "/api/documents/upload", "POST", body, ctype)
+        # one request every 0.1 s: the document until it lists its
+        # extraction, the extraction's /status until it is "completed" (at
+        # the save stage), then the document until it is (after validation)
+        status, eid, polls = None, None, 0
+        while time.perf_counter() - t0 < timeout_s:
+            if eid is None or status["status"] == "completed":
+                found = ok_json(f"{url}/api/documents/{doc['id']}")
+                if found["status"] in ("completed", "failed"):
+                    break
+                eid = found["extractions"][0]["id"] if found["extractions"] else None
+            if eid is not None:
+                status = ok_json(f"{url}/api/extractions/{eid}/status")
+                if status["status"] == "failed":
+                    break
+            polls += 1
+            time.sleep(0.1)
+        if eid is not None:
+            status = ok_json(f"{url}/api/extractions/{eid}/status")
+        wall = time.perf_counter() - t0
+        launched = counts()
+        tiers = dict(preprocess.RASTER_TIERS)
+        if status is None or status["status"] != "completed":
+            raise AssertionError(f"{tag}: extraction did not complete: {status}")
+        ext = ok_json(f"{url}/api/extractions/document/{doc['id']}")
+        exports = {}
+        for fmt in ("json", "csv", "excel", "pdf"):
+            code, headers, payload = http(f"{url}/api/exports/extraction/{ext['id']}/{fmt}")
+            if code != 200:
+                raise AssertionError(f"{tag}: export {fmt}: {code} {payload[:200]!r}")
+            exports[fmt] = payload
+        got = smoke.service_record(ext, exports["json"], exports["csv"])
+        cmp = smoke.compare_service(expected, got, 1e-3, 0.5)
+        sheet = zipfile.ZipFile(io.BytesIO(exports["excel"])).read("xl/worksheets/sheet1.xml")
+        if b"<sheetData>" not in sheet or not got["fields"] or \
+                got["fields"][0]["key"].encode() not in sheet.replace(b"&amp;", b"&"):
+            failed.append("the XLSX export has no field sheet")
+        if not (exports["pdf"].startswith(b"%PDF-") and exports["pdf"].rstrip().endswith(b"%%EOF")):
+            failed.append("the PDF export is not a PDF")
+        code, headers, jpeg = http(f"{url}/api/documents/{doc['id']}/processed-image/1")
+        if code != 200 or jpeg[:2] != b"\xff\xd8" or jpeg[-2:] != b"\xff\xd9":
+            failed.append(f"processed-image page 1: {code}, not a JPEG")
+        health = http(url + "/health")
+        devices = ok_json(url + "/api/stats/devices")["devices"]
+        overview = ok_json(url + "/api/stats/overview")
+    finally:
+        stop()
+    tiers_agree = raster_tiers_agree(data, orch.engine.settings.pdf_raster_dpi)
+    logs = orch.repos.logs.list_for_document(doc["id"])
+    stages = {f"{r['step']}_ms": r["duration_ms"] for r in logs
+              if r["status"] == "completed" and r["duration_ms"] is not None}
+    ocr_log = next((r for r in logs if r["step"] == "ocr" and r["status"] == "completed"), {})
+    on_card = orch.engine.recognizer.device.type == "cuda"
+    name = torch.cuda.get_device_name(0) if on_card else None
+    pages = len(ext["page_dimensions"])
+    row = {"phase": tag, "pages": pages,
+           "raster_tier": tiers, "pil": pil_version(), "tiers_agree": tiers_agree,
+           "upload_wall_s": wall, "pages_per_s": pages / wall,
+           "polls": polls, "stage_ms": stages,
+           "scheduler_ms": (ocr_log.get("details") or {}).get("stage_times_ms"),
+           "fields_expected": cmp["fields"], "fields_matched": cmp["matched"],
+           "field_share": cmp["field_share"], "fields_equal": cmp["fields_equal"],
+           "rows_equal": cmp["rows_equal"], "rows_differing": cmp["rows_differing"],
+           "max_conf_diff": cmp["max_conf_diff"], "max_poly_diff": cmp["max_poly_diff"],
+           "validation": got["validation"], "validation_equal": cmp["validation_equal"],
+           "json_equal": cmp["json_equal"], "csv_equal": cmp["csv_equal"],
+           "markdown_equal": cmp["markdown_equal"], "form_type": got["form_type"],
+           "layout_boxes": cmp["layout_boxes"], "export_bytes": {k: len(v) for k, v in
+                                                                 exports.items()},
+           "health": health[0], "devices": devices,
+           "engine_devices": overview["engine"].get("devices"),
+           "launches": launched, "gated": exact, "nvidia_smi": smi}
+    if exact and not (cmp["fields_equal"] and cmp["rows_equal"] and cmp["validation_equal"]
+                      and cmp["json_equal"] and cmp["csv_equal"]):
+        failed.append("fields, rows, validation or exports differ from the JAX record")
+    if tiers_agree.get("equal") is False:
+        failed.append(f"the rasterization tiers disagree: {tiers_agree}")
+    if health[0] != 200:
+        failed.append(f"/health answered {health[0]}")
+    if on_card and not (any(d.get("name") == name for d in devices)
+                        and name in (overview["engine"].get("devices") or [])):
+        failed.append(f"the CUDA device {name} is not named: {devices}")
+    if on_card and (launched["enhance"] <= 0 or launched["crop"] <= 0):
+        failed.append(f"kernels not on the path: {launched}")
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    return row
+
+
 def phase_host_ops(page, iters: int = 3) -> dict:
     """ms per page on this host for the host image operations the hybrid
     path runs (median of ``iters``): the Gaussian threshold (classical
     detector), the mean threshold (marks and handwriting), both component
-    orders and the dilations."""
+    orders and the dilations; and the save stage's JPEG encoding of the
+    page (quality 92, the default)."""
     from ocr_system_tpu_torch.engine import host_image
+    from ocr_system_tpu_torch.engine.jpeg import encode_jpeg
     from ocr_system_tpu_torch.native import cc_label
 
     gray = host_image.rgb_to_gray(page)
@@ -536,6 +779,7 @@ def phase_host_ops(page, iters: int = 3) -> dict:
         "cc_stats": lambda: cc_label.stats(*cc_label.label(mask)),
         "dilate_1x7": lambda: host_image.dilate(mask, (1, 7)),
         "dilate_3x3": lambda: host_image.dilate(mask, (3, 3)),
+        "encode_jpeg": lambda: encode_jpeg(page, 92),
     }
     out = {}
     for name, fn in ops.items():
@@ -908,6 +1152,24 @@ def main() -> int:
         emit({**phase_extract_e2e(orch, as_pages(forms), want_ex["e2e"][dtype],
                                   f"extract_e2e_{dtype}", dtype == "float32", smi=smi),
               "elapsed_s": time.perf_counter() - t})
+    # ---- phase 6e: the service: a scanned PDF uploaded through the HTTP
+    # API (App.serve on a socket) to persisted, validated and exported
+    # fields, at both dtypes ----
+    import tempfile
+
+    upload, want_svc = smoke.service_upload()
+    with tempfile.TemporaryDirectory() as root:
+        for dtype in ("float32", "bfloat16"):
+            t = time.perf_counter()
+            # the served engine at the upload's rasterization dpi (the
+            # renderer tier reads it; the embedded-image tier does not)
+            engine = smoke.build_engine(dev, **expected["settings"], compute_dtype=dtype,
+                                        pdf_raster_dpi=smoke.SERVICE_DPI)
+            app, orch = service_app(engine, extractors[dtype], root, dtype)
+            emit({**phase_service(app, orch, upload, want_svc[dtype], f"service_{dtype}",
+                                  dtype == "float32", smi=smi),
+                  "elapsed_s": time.perf_counter() - t})
+            orch.repos.db.close()
     del hybrid32, extractors
 
     # ---- phase 7: the Latin wave, then the mixed wave, through the

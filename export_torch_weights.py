@@ -2,7 +2,7 @@
 """Carry the trained weights and a set of real forms over to the PyTorch
 port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
-    JAX_PLATFORMS=cpu python export_torch_weights.py
+    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service]
 
 Writes, in ocr_system_tpu_torch/:
 
@@ -47,6 +47,18 @@ Writes, in ocr_system_tpu_torch/:
   OCR of the Latin wave at each compute dtype: fields, field rows and
   validation report.
 
+- assets/service_upload.pdf: the Latin forms' gray as a scanned PDF, one
+  FlateDecode DeviceGray image per page (utils/smoke.scanned_pdf), which
+  a renderer at utils/smoke.SERVICE_DPI pastes 1:1;
+- assets/service_expected.json: the JAX application
+  (ocr_system_tpu.api.app.create_app with the hybrid JaxOCREngine on the
+  three checkpoints and the LayoutModelExtractor on the bf16-rounded
+  parameters, on a temporary storage root and database) on that upload,
+  at float32 and at bfloat16: the current extraction's markdown, form
+  type, page dimensions, layout box count, fields with their boxes and
+  validation, and its JSON and CSV exports, masked
+  (utils/smoke.service_record). ``--only service`` writes just these two.
+
 chip_smoke.py loads all of them and holds the port against the JAX
 package on the card. This tool imports JAX, so it stays outside the
 package, and the package never imports it.
@@ -56,7 +68,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -324,7 +338,76 @@ def export_extract() -> list[Path]:
     return [path, out]
 
 
+def jax_service_record(settings, engine, extractor, data: bytes, filename: str,
+                       workdir: Path) -> dict:
+    """The JAX application (``create_app`` on an ``ApiContext`` with this
+    engine and extractor, on a fresh storage root and database in
+    ``workdir``) on one upload: utils/smoke.app_upload's record. The engine
+    runs in the scheduler's worker threads, each of which builds its mesh
+    from MESH_SHAPE: one device, as the checkpoints restore."""
+    from ocr_system_tpu.api.app import ApiContext, create_app
+    from ocr_system_tpu.api.http import Request
+    from ocr_system_tpu.db.connection import Database
+    from ocr_system_tpu.service.orchestrator import ExtractionOrchestrator
+    from ocr_system_tpu_torch.utils import smoke
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    s = settings.model_copy(update={"storage_root": str(workdir / "storage"),
+                                    "database_path": str(workdir / "app.db"),
+                                    "warmup_on_start": False})
+    db = Database(s.database_path)
+    previous = os.environ.get("MESH_SHAPE")
+    os.environ["MESH_SHAPE"] = "dp=1"
+    try:
+        orch = ExtractionOrchestrator(settings=s, db=db, engine=engine, extractor=extractor)
+        app = create_app(ApiContext(settings=s, db=db, orchestrator=orch))
+        return smoke.app_upload(app, Request, data, filename)
+    finally:
+        if previous is None:
+            os.environ.pop("MESH_SHAPE", None)
+        else:
+            os.environ["MESH_SHAPE"] = previous
+        db.close()
+
+
+def export_service() -> list[Path]:
+    """assets/service_upload.pdf and assets/service_expected.json (module
+    doc)."""
+    import jax
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.engine.pipeline import _build_engine
+    from ocr_system_tpu.extract.layout_model import LayoutModelExtractor
+    from ocr_system_tpu_torch.utils import smoke
+
+    forms, _ = smoke.smoke_forms()
+    data = smoke.scanned_pdf([f[..., 0] for f in forms])
+    smoke.SERVICE_UPLOAD.write_bytes(data)
+    ckpt = dict(det_checkpoint=str(REPO / "checkpoints/det"),
+                rec_checkpoint=str(REPO / "checkpoints/rec_latin"),
+                rec_checkpoint_devanagari=str(REPO / "checkpoints/rec_devanagari"),
+                extract_checkpoint=str(REPO / "checkpoints/extract"))
+    record: dict = {"jax": jax.__version__, "upload": smoke.SERVICE_UPLOAD.name,
+                    "pdf_raster_dpi": smoke.SERVICE_DPI, "settings": SMOKE_SETTINGS}
+    rounded = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for dt in DTYPES:
+            s = JaxSettings(**SMOKE_SETTINGS, **ckpt, compute_dtype=dt,
+                            pdf_raster_dpi=smoke.SERVICE_DPI)
+            if rounded is None:
+                rounded = rounded_bf16(LayoutModelExtractor(s).variables)
+            record[dt] = jax_service_record(
+                s, _build_engine("hybrid", s), LayoutModelExtractor(s, params=rounded), data,
+                smoke.SERVICE_UPLOAD.name, Path(tmp) / dt)
+    smoke.SERVICE_EXPECTED.write_text(json.dumps(record, indent=1, ensure_ascii=False) + "\n")
+    return [smoke.SERVICE_UPLOAD, smoke.SERVICE_EXPECTED]
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--only", "service"]:
+        for path in export_service():
+            print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
+        return 0
     import jax
 
     from ocr_system_tpu.core.config import Settings as JaxSettings
@@ -373,8 +456,9 @@ def main() -> int:
     (ASSETS / "smoke_forms_expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     glued = export_glued()
     extract = export_extract()
+    service = export_service()
     for path in (*written, ASSETS / "smoke_forms.npz", ASSETS / "hindi_forms.npz",
-                 ASSETS / "smoke_forms_expected.json", *glued, *extract):
+                 ASSETS / "smoke_forms_expected.json", *glued, *extract, *service):
         print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
     for key in waves:
         for dt in DTYPES:

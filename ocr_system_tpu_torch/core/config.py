@@ -283,6 +283,30 @@ class Settings:
         return p
 
     @property
+    def upload_path(self) -> Path:
+        p = self.storage_path / self.upload_dir
+        p.mkdir(parents=True, exist_ok=True)
+        return p
+
+    @property
+    def export_path(self) -> Path:
+        p = self.storage_path / self.export_dir
+        p.mkdir(parents=True, exist_ok=True)
+        return p
+
+    @property
+    def processed_path(self) -> Path:
+        p = self.storage_path / self.processed_dir
+        p.mkdir(parents=True, exist_ok=True)
+        return p
+
+    @property
+    def db_path(self) -> Path:
+        p = Path(self.database_path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        return p
+
+    @property
     def max_upload_size_bytes(self) -> int:
         return self.max_upload_size_mb * 1024 * 1024
 

@@ -10,6 +10,9 @@ detectors (``get_engine``), script routing between the Latin and the
 Devanagari recognizer (``rec_charset="auto"``) with both rescue passes,
 glue split, selection marks, handwriting, tables and reading order. The
 detector refuses the options it does not run yet (``engine/detector.py``).
+``TorchOCREngine.process_document`` decodes an image or a PDF's pages;
+``warmup`` and ``get_status`` serve the HTTP application, and
+``FakeOCREngine`` (``ocr_engine="fake"``) its tests.
 """
 
 from __future__ import annotations
@@ -496,8 +499,8 @@ class TorchOCREngine:
         )
 
     def process_document(self, data: bytes, filename: str) -> DocumentOCRResult:
-        """Decode (images; PDFs are a later slice), run every page through
-        the PageScheduler, combine."""
+        """Decode (an image, or a PDF's pages), run every page through the
+        PageScheduler, combine."""
         t0 = time.perf_counter()
         try:
             pages = load_document(data, filename, dpi=self.settings.pdf_raster_dpi)
@@ -511,6 +514,128 @@ class TorchOCREngine:
         doc.processing_time_ms = (time.perf_counter() - t0) * 1000.0
         doc.stage_times_ms = scheduler.timer.as_ms()
         return doc
+
+    def warmup(self, wave: int | None = None) -> dict:
+        """Run each det bucket once, and the largest at ``wave`` pages
+        (default ``det_batch_size``), one thread per bucket, so that the
+        first upload does not pay for the first launches: the CUDA library's
+        build (``kernels/_build.py``; the threads share its lock, so it is
+        built once) and cuDNN's and cuBLAS's set-up for the serving shapes.
+        Each page carries rows of word-like strokes, so that the trained
+        detector finds boxes and recognition runs too. Returns {bucket:
+        seconds}, or {bucket: "failed: ..."}: a warm-up never raises."""
+        wave = wave or max(self.settings.det_batch_size, 1)
+        out: dict = {}
+
+        def ink_page(sz: int) -> np.ndarray:
+            rng = np.random.default_rng(12345)
+            img = np.full((sz, sz, 3), 245, np.uint8)
+            for y in range(40, sz - 40, 36):
+                x = 30
+                while x < sz - 80:
+                    for _ in range(int(rng.integers(3, 8))):  # one word
+                        w = int(rng.integers(3, 6))
+                        img[y: y + 12, x: x + w] = 30
+                        x += w + int(rng.integers(2, 4))
+                    x += int(rng.integers(10, 22))  # inter-word gap
+            return img
+
+        def warm_bucket(sz: int) -> None:
+            t0 = time.perf_counter()
+            n = wave if sz == max(self.settings.det_image_buckets) else 1
+            pages = [PageImage(pixels=ink_page(sz), page_number=i + 1) for i in range(n)]
+            try:
+                self.process_pages(pages)
+                out[sz] = round(time.perf_counter() - t0, 2)
+            except Exception as e:  # a warm-up must never take serving down
+                out[sz] = f"failed: {e}"
+
+        threads = [threading.Thread(target=warm_bucket, args=(sz,), daemon=True)
+                   for sz in self.settings.det_image_buckets]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    def get_status(self) -> dict:
+        """The reference's get_status contract: the engine, its devices
+        (the CUDA device names where the engine runs on the card) and its
+        buckets."""
+        dev = self.recognizer.device
+        if dev.type == "cuda":
+            devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [str(dev)]
+        return {
+            "engine": self.name,
+            "available": True,
+            "devices": devices,
+            "det_buckets": list(self.settings.det_image_buckets),
+            "rec_buckets": list(self.settings.rec_width_buckets),
+        }
+
+
+class FakeOCREngine:
+    """Deterministic engine for tests: a fixed layout (the words of
+    ``text`` in a row, and one line) on every page, so that service and API
+    tests need no model."""
+
+    name = "fake"
+
+    def __init__(self, settings: Settings | None = None, text: str | None = None):
+        self.settings = settings or get_settings()
+        self.text = text if text is not None else self.settings.fake_ocr_text
+
+    def process_document(self, data: bytes, filename: str) -> DocumentOCRResult:
+        try:
+            pages = load_document(data, filename)
+        except Exception as e:
+            return DocumentOCRResult(success=False, error=str(e))
+        outs = []
+        for pg in pages:
+            words = self.text.split()
+            w = pg.width / max(len(words) * 2, 1)
+            boxes = []
+            for i, word in enumerate(words):
+                x0 = (2 * i) * w
+                boxes.append({
+                    "type": "word",
+                    "content": word,
+                    "confidence": 0.99,
+                    "polygon": [x0, 10.0, x0 + w, 10.0, x0 + w, 30.0, x0, 30.0],
+                    "page_number": pg.page_number,
+                })
+            boxes.append({
+                "type": "line",
+                "content": self.text,
+                "confidence": 0.99,
+                "polygon": [0.0, 10.0, pg.width * 1.0, 10.0, pg.width * 1.0, 30.0, 0.0, 30.0],
+                "page_number": pg.page_number,
+            })
+            outs.append(OCROutput(
+                success=True,
+                markdown=self.text,
+                html=self.text,
+                json_content={"lines": [self.text]},
+                layout_boxes=boxes,
+                page_number=pg.page_number,
+                page_width=float(pg.width),
+                page_height=float(pg.height),
+                processing_time_ms=1.0,
+                processed_image=pg.pixels,
+            ))
+        return DocumentOCRResult(
+            success=True,
+            pages=outs,
+            combined_markdown=combine_markdown([p.markdown for p in outs]),
+            combined_html="<br>".join(p.html for p in outs),
+            total_pages=len(outs),
+            processing_time_ms=1.0,
+        )
+
+    def get_status(self) -> dict:
+        return {"engine": self.name, "available": True}
 
 
 def document_result(outputs: list[OCROutput]) -> DocumentOCRResult:
@@ -574,14 +699,14 @@ def combine_markdown(pages_md: list[str]) -> str:
     return "\n\n".join(f"## Page {i + 1}\n\n{md}" for i, md in enumerate(pages_md))
 
 
-_ENGINES: dict[tuple, TorchOCREngine] = {}
+_ENGINES: dict[tuple, TorchOCREngine | FakeOCREngine] = {}
 _ENGINES_LOCK = threading.Lock()
 
 
 def get_engine(settings: Settings | None = None,
-               device: str | torch.device | None = None) -> TorchOCREngine:
+               device: str | torch.device | None = None) -> TorchOCREngine | FakeOCREngine:
     """Engine selection by ``settings.ocr_engine`` ("jax": neural,
-    "classical", "hybrid") and a lazy, thread-safe singleton, as the
+    "classical", "hybrid", "fake": the test engine) and a lazy, thread-safe singleton, as the
     reference's ``get_engine`` (two concurrent first requests build one
     engine). The reference keys its singleton on the engine name alone; the
     port keys it on the whole settings and the device, so that a second
@@ -597,7 +722,7 @@ def get_engine(settings: Settings | None = None,
     return engine
 
 
-def _build_engine(key: str, s: Settings, device) -> TorchOCREngine:
+def _build_engine(key: str, s: Settings, device) -> TorchOCREngine | FakeOCREngine:
     if key == "jax":
         return TorchOCREngine(s, device=device)
     if key == "classical":
@@ -611,4 +736,6 @@ def _build_engine(key: str, s: Settings, device) -> TorchOCREngine:
         from ocr_system_tpu_torch.engine.hybrid_detector import HybridDetector
 
         return TorchOCREngine(s, detector=HybridDetector(s, device=device), device=device)
+    if key == "fake":
+        return FakeOCREngine(s)
     raise ValueError(f"unknown or unported OCR engine {key!r}")

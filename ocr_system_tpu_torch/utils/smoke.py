@@ -11,8 +11,11 @@ agreement rules that chip_smoke.py and the tests share."""
 
 from __future__ import annotations
 
+import csv
+import io
 import json
 import re
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +45,14 @@ EXPECTED = PACKAGE / "assets" / "smoke_forms_expected.json"
 GLUED = PACKAGE / "assets" / "glued_lines.npz"
 GLUED_EXPECTED = PACKAGE / "assets" / "glued_lines_expected.json"
 EXTRACT_EXPECTED = PACKAGE / "assets" / "extract_expected.json"
+# the service phase's upload: the committed Latin forms as a scanned PDF,
+# and the JAX application's extraction of it
+SERVICE_UPLOAD = PACKAGE / "assets" / "service_upload.pdf"
+SERVICE_EXPECTED = PACKAGE / "assets" / "service_expected.json"
+# 72 dpi: one PDF point per pixel, so that the renderer pastes each page
+# image 1:1 (at 300 dpi a 960 px image spans 230.4 pt, and the paste's
+# int() corners give 959 px and a resize)
+SERVICE_DPI = 72
 
 # A bf16 kernel output equals its plain version's float32 result rounded to
 # bf16, except by at most one bf16 ulp on at most this share of elements:
@@ -380,3 +391,215 @@ def compare_rows(expected: list[dict], got: list[dict], conf_tol: float,
         bad.append({"rows": [len(expected), len(got)]})
     return {"rows": len(expected), "rows_differing": bad, "max_conf_diff": conf_d,
             "max_poly_diff": poly_d}
+
+
+# ---- the service phase: masking what differs between two runs ----
+
+_UUID = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+_ISO_TIME = re.compile(r"\d{4}-\d{2}-\d{2}[T ]\d{2}:\d{2}:\d{2}(\.\d+)?(\+00:00|Z)?")
+_STAMP = re.compile(r"\d{8}_\d{6}(_[0-9a-f]{8})?")
+# wall-clock measurements in rows and responses
+TIMING_KEYS = ("ocr_time_ms", "llm_time_ms", "processing_time_ms", "duration_ms", "uptime_s",
+               "avg_total_ms", "avg_ocr_ms", "avg_extraction_ms", "stage_times_ms")
+
+
+def masked(obj, ids: dict | None = None, paths: tuple[str, ...] = ()):
+    """A JSON-like value with what two runs of the same requests do not
+    share replaced: each uuid by ``<id:n>`` (n numbers the distinct ids in
+    order of appearance, so that references between rows stay checked),
+    timestamps by ``<time>``, stored-file stamps by ``<stamp>``, each of
+    ``paths`` (run directories) by ``<dir>``, and the values under
+    ``TIMING_KEYS`` by ``<ms>``."""
+    ids = {} if ids is None else ids
+
+    def text(s: str) -> str:
+        for p in paths:
+            s = s.replace(p, "<dir>")
+        s = _UUID.sub(lambda m: ids.setdefault(m.group(0), f"<id:{len(ids)}>"), s)
+        return _STAMP.sub("<stamp>", _ISO_TIME.sub("<time>", s))
+
+    if isinstance(obj, dict):
+        return {text(str(k)) if isinstance(k, str) else k:
+                ("<ms>" if k in TIMING_KEYS and v is not None else masked(v, ids, paths))
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [masked(v, ids, paths) for v in obj]
+    if isinstance(obj, str):
+        return text(obj)
+    return obj
+
+
+def scanned_pdf(pages: list[np.ndarray]) -> bytes:
+    """(H, W) uint8 gray pages as a scanned PDF: per page a MediaBox of W x
+    H points and one FlateDecode DeviceGray image XObject drawn over it
+    (``W 0 0 H 0 0 cm``), with a cross-reference table; at ``SERVICE_DPI``
+    a renderer pastes each image 1:1."""
+    objs: list[bytes] = []
+
+    def add(body: bytes) -> int:
+        objs.append(body)
+        return len(objs)
+
+    add(b"<< /Type /Catalog /Pages 2 0 R >>")
+    add(b"")  # the page tree, filled in below
+    kids = []
+    for page in pages:
+        h, w = page.shape
+        data = zlib.compress(np.ascontiguousarray(page, np.uint8).tobytes(), 9)
+        img = add(b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace "
+                  b"/DeviceGray /BitsPerComponent 8 /Filter /FlateDecode /Length %d >>\n"
+                  b"stream\n%s\nendstream" % (w, h, len(data), data))
+        draw = b"q %d 0 0 %d 0 0 cm /Im0 Do Q" % (w, h)
+        content = add(b"<< /Length %d >>\nstream\n%s\nendstream" % (len(draw), draw))
+        kids.append(add(b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 %d %d] /Resources "
+                        b"<< /XObject << /Im0 %d 0 R >> >> /Contents %d 0 R >>"
+                        % (w, h, img, content)))
+    objs[1] = (b"<< /Type /Pages /Kids [%s] /Count %d >>"
+               % (b" ".join(b"%d 0 R" % k for k in kids), len(kids)))
+    out = bytearray(b"%PDF-1.4\n%\xe2\xe3\xcf\xd3\n")
+    offsets = []
+    for i, body in enumerate(objs, 1):
+        offsets.append(len(out))
+        out += b"%d 0 obj\n%s\nendobj\n" % (i, body)
+    xref = len(out)
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % (len(objs) + 1)
+    out += b"".join(b"%010d 00000 n \n" % o for o in offsets)
+    out += b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (
+        len(objs) + 1, xref)
+    return bytes(out)
+
+
+def service_upload() -> tuple[bytes, dict]:
+    """The committed upload PDF and the JAX application's record of it."""
+    return SERVICE_UPLOAD.read_bytes(), json.loads(SERVICE_EXPECTED.read_text())
+
+
+def service_record(extraction: dict, json_export: bytes, csv_export: bytes) -> dict:
+    """What the service phase holds of one processed upload: from the current
+    extraction (``GET /api/extractions/document/{id}``) its markdown, form
+    type, page dimensions, layout box count and fields in order (key,
+    value, type, confidence, page, key and value boxes, validation), the
+    validation counts, and the JSON and CSV exports, masked."""
+    fields = extraction["fields"]
+    layout = extraction.get("layout_data") or []
+    return {
+        "markdown": extraction["raw_ocr_markdown"],
+        "form_type": extraction["form_type"],
+        "language": extraction["language"],
+        "model_name": extraction["model_name"],
+        "page_dimensions": extraction["page_dimensions"],
+        "layout_boxes": len(layout),
+        "fields": [{"key": f["field_key"], "value": f["field_value"], "type": f["field_type"],
+                    "order": f["sort_order"], "confidence": f["confidence"],
+                    "page": f["page_number"], "key_bbox": f["key_bbox"],
+                    "value_bbox": f["value_bbox"], "is_valid": f["is_valid"],
+                    "needs_review": f["needs_review"]} for f in fields],
+        "validation": {"total": extraction["total_fields"],
+                       "valid": sum(f["is_valid"] is True for f in fields),
+                       "invalid": sum(f["is_valid"] is False for f in fields),
+                       "needs_review": sum(bool(f["needs_review"]) for f in fields),
+                       "high_confidence": extraction["high_confidence_count"],
+                       "low_confidence": extraction["low_confidence_count"]},
+        "json_export": masked(json.loads(json_export)),
+        "csv_export": list(csv.reader(io.StringIO(csv_export.decode("utf-8")))),
+    }
+
+
+def _close(a, b, tol: float) -> bool:
+    """JSON-like values equal, floats within ``tol`` (CSV cells that read
+    as floats included)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_close(a[k], b[k], tol) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(_close(x, y, tol) for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return (isinstance(a, (int, float)) and isinstance(b, (int, float))
+                and not isinstance(a, bool) and abs(a - b) <= tol)
+    if isinstance(a, str) and isinstance(b, str) and a != b:
+        try:
+            return "." in a and abs(float(a) - float(b)) <= tol
+        except ValueError:
+            return False
+    return a == b
+
+
+def compare_service(expected: dict, got: dict, conf_tol: float, poly_tol: float) -> dict:
+    """A service record against the JAX application's: the fields equal in
+    key, value, type and order (``fields_equal``) with confidences within
+    ``conf_tol``, pages and validation equal and key and value boxes
+    matched to the same text within ``poly_tol`` px (``rows_equal``), the
+    validation counts equal, the JSON and CSV exports equal with floats
+    within ``conf_tol``; the share of the expected fields that a got field
+    equals in key, value and type; the markdown, form type and layout
+    count compared (reported)."""
+    want = [(f["key"], f["value"], f["type"], f["order"]) for f in expected["fields"]]
+    have = [(f["key"], f["value"], f["type"], f["order"]) for f in got["fields"]]
+    free = [h[:3] for h in have]
+    matched = 0
+    for w in want:
+        if w[:3] in free:
+            free.remove(w[:3])
+            matched += 1
+    equal = want == have
+    conf_d = poly_d = 0.0
+    rows_bad = []
+    if equal:
+        for i, (e, g) in enumerate(zip(expected["fields"], got["fields"])):
+            conf_d = max(conf_d, abs(e["confidence"] - g["confidence"]))
+            polys = [_max_poly_diff(e[k], g[k]) for k in ("key_bbox", "value_bbox")]
+            same = all(e[k] == g[k] for k in ("page", "is_valid", "needs_review"))
+            if None in polys or not same or max(polys) > poly_tol:
+                rows_bad.append(i)
+            else:
+                poly_d = max(poly_d, *polys)
+    return {"fields": len(want), "matched": matched,
+            "field_share": matched / max(len(want), 1), "fields_equal": equal,
+            "max_conf_diff": conf_d if equal else None,
+            "rows_equal": equal and not rows_bad and conf_d <= conf_tol,
+            "rows_differing": rows_bad, "max_poly_diff": poly_d,
+            "validation_equal": expected["validation"] == got["validation"],
+            "json_equal": _close(expected["json_export"], got["json_export"], conf_tol),
+            "csv_equal": _close(expected["csv_export"], got["csv_export"], conf_tol),
+            "markdown_equal": expected["markdown"] == got["markdown"],
+            "form_type_equal": expected["form_type"] == got["form_type"],
+            "layout_boxes": [expected["layout_boxes"], got["layout_boxes"]]}
+
+
+def multipart(data: bytes, filename: str, fields: dict | None = None,
+              boundary: str = "smokeboundary") -> tuple[bytes, str]:
+    """A multipart/form-data body with ``fields`` and one file part named
+    "file", and its content type."""
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in (fields or {}).items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                 f'filename="{filename}"\r\nContent-Type: application/pdf\r\n\r\n'.encode()
+                 + data + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
+
+
+def app_upload(app, request_cls, data: bytes, filename: str) -> dict:
+    """An upload through an application's ``handle`` in this process (either
+    package's ``App`` and its ``Request`` class): POST it with
+    ``auto_extract``, run the background extraction to its end, then read
+    the current extraction and its JSON and CSV exports; returns the
+    ``service_record``."""
+    import asyncio
+
+    async def call(method: str, path: str, body: bytes = b"", ctype: str = ""):
+        resp, bg = await app.handle(request_cls(
+            method=method, path=path, query={}, body=body, client_ip="127.0.0.1",
+            headers={"content-type": ctype} if ctype else {}))
+        await bg.run()
+        if resp.status >= 300:
+            raise AssertionError(f"{method} {path}: {resp.status} {resp.body[:300]!r}")
+        return resp.body
+
+    body, ctype = multipart(data, filename, {"auto_extract": "true"})
+    doc = json.loads(asyncio.run(call("POST", "/api/documents/upload", body, ctype)))
+    ext = json.loads(asyncio.run(call("GET", f"/api/extractions/document/{doc['id']}")))
+    if ext["status"] != "completed":
+        raise AssertionError(f"extraction {ext['status']}: {ext.get('error_message')}")
+    exports = [asyncio.run(call("GET", f"/api/exports/extraction/{ext['id']}/{fmt}"))
+               for fmt in ("json", "csv")]
+    return service_record(ext, *exports)

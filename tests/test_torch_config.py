@@ -143,9 +143,9 @@ def test_every_rec_charset_runs_a_page(charset):
 
 
 def test_get_engine_builds_each_engine_once():
-    """"jax", "classical" and "hybrid" get their detectors; concurrent first
-    calls with one configuration build one engine; another configuration
-    gets its own."""
+    """"jax", "classical" and "hybrid" get their detectors, "fake" the test
+    engine; concurrent first calls with one configuration build one engine;
+    another configuration gets its own; an unknown name raises."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
@@ -164,5 +164,8 @@ def test_get_engine_builds_each_engine_once():
     other = get_engine(Settings(ocr_engine="hybrid", compute_dtype="float32", **small),
                        device="cpu")
     assert other is not get_engine(Settings(ocr_engine="hybrid", **small), device="cpu")
+    from ocr_system_tpu_torch.engine.pipeline import FakeOCREngine
+
+    assert type(get_engine(Settings(ocr_engine="fake", **small), device="cpu")) is FakeOCREngine
     with pytest.raises(ValueError, match="engine"):
-        get_engine(Settings(ocr_engine="fake", **small), device="cpu")
+        get_engine(Settings(ocr_engine="tesseract", **small), device="cpu")

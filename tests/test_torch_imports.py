@@ -2,8 +2,9 @@
 import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, safetensors
 and the JAX package all refused: every module of the port imports, and
 chip_smoke.py's phases run at a tiny size on the committed weights and
-forms, the hybrid engine's, the glue split's and field extraction's
-among them."""
+forms, the hybrid engine's, the glue split's, field extraction's and the
+service's (a scanned PDF uploaded to the port's app on a socket, through
+to its exports) among them."""
 
 import ast
 import os
@@ -78,7 +79,7 @@ assert sch["waves"] == 2 and sch["retried_pages"] == 0, sch
 assert eng["words"] > 0 and hyb["words"] == hyb["words_matched"] > 0, (eng, hyb)
 assert hyb["text_share_vs"] == {"itself": 1.0}, hyb
 assert set(hyb["stage_ms"]) >= {"det_neural", "det_classical", "glue", "finish"}, hyb
-assert len(host["ms"]) == 7, host
+assert len(host["ms"]) == 8, host
 assert glue["boxes_after"] > glue["lines"] and glue["texts_equal"], glue
 assert mix["devanagari_words"] > 0 and mix["devanagari_dispatch"]["dispatches"] > 0, mix
 assert sum(r["confidence"][0] for r in mix["rescued"]) > 0 and all(mix["rescued_ok"]), mix
@@ -107,8 +108,26 @@ e2e = cs.phase_extract_e2e(orch, pages(small), own, "extract_e2e", True)
 assert x32["docs_equal"] == 2 and x32["forward"][256]["host_ms"] > 0, x32
 assert x16["field_share"] >= 0.95, x16
 assert e2e["fields_equal"] and e2e["report_equal"] and e2e["rows"] > 0, e2e
+# the service: a scanned PDF of two small forms through the port's app, on
+# a socket, to its exports; without PIL the embedded-image tier serves it
+import tempfile
+from ocr_system_tpu_torch.api.http import Request
+from ocr_system_tpu_torch.engine import preprocess
+
+upload = smoke.scanned_pdf([f[..., 0] for f in small[:2]])
+with tempfile.TemporaryDirectory() as root:
+    app, orch = cs.service_app(hybrid, ex, root, "float32")
+    own = smoke.app_upload(app, Request, upload, smoke.SERVICE_UPLOAD.name)
+    assert preprocess.RASTER_TIERS == {"embedded": 1}, preprocess.RASTER_TIERS
+    app, orch = cs.service_app(hybrid, ex, root + "/again", "float32")
+    svc = cs.phase_service(app, orch, upload, own, "service", True)
+assert svc["raster_tier"] == {"embedded": 1} and svc["pil"] is None, svc
+assert svc["tiers_agree"] == {"embedded_pages": 2, "render": "no PIL"}, svc
+assert svc["fields_equal"] and svc["json_equal"] and svc["csv_equal"] and svc["health"] == 200, svc
+assert svc["fields_expected"] > 0 and svc["pages"] == 2, svc
+assert set(svc["stage_ms"]) >= {"ocr_ms", "llm_extraction_ms", "save_ms", "validation_ms"}, svc
 print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"],
-      e2e["launches"])
+      e2e["launches"], svc["launches"])
 ''' % (BLOCKED,)
 
 
@@ -122,9 +141,13 @@ def test_port_runs_without_the_jax_stack():
     assert proc.stdout.strip().splitlines()[-1].startswith("OK")
 
 
-# the one sanctioned lazy import: image decoding needs PIL, the serving
-# path does not (the subprocess test above runs the path without it)
-ALLOWED = {("ocr_system_tpu_torch/engine/preprocess.py", "decode_image", "PIL")}
+# the sanctioned lazy imports: image decoding and the PDF renderer's canvas
+# need PIL, the serving path does not (the subprocess test above runs the
+# path, a scanned PDF upload included, without it)
+ALLOWED = {("ocr_system_tpu_torch/engine/preprocess.py", "decode_image", "PIL")} | {
+    ("ocr_system_tpu_torch/engine/pdf.py", method, "PIL")
+    for method in ("__init__", "_pil_font", "_decode_image_xobject", "_paste_image", "finish")} | {
+    ("chip_smoke.py", "pil_version", "PIL")}  # the service phase reports whether PIL imports
 
 
 def _imports(path: Path):

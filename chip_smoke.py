@@ -46,7 +46,28 @@ JSON and CSV exports are held against the JAX application's
 at bf16), the XLSX, PDF and page-image responses are checked, ``/health``
 and ``/api/stats/devices`` must name the card, and the rasterization
 tier that served, the upload's wall seconds and the processing log's
-stage times are printed.
+stage times are printed. Training: each trainer (SVTR with CTC, DBNet
+with the DB loss, the 512 x 8 layout transformer) takes 3 steps of its
+step function on its committed batch (``assets/train_batches.npz``, drawn
+by the JAX package's iterators at the train_models CLI's defaults) from
+the trained weights, at float32 (TF32 off for the phase) and at bf16; the
+losses, the first step's gradient norm, the parameter-group norms and the
+first and last BatchNorm's statistics are held against the JAX package's
+record of the same steps (``assets/train_expected.json``): at float32
+within 4 times the JAX package's own spread under rounding changes
+(``assets/train_spread.json``, train_spread_probe.py; two layout head
+norms widened to the JAX record's own distance from exact arithmetic, the
+cause shown in the run), and the first step within 2^-15 of the same
+steps at float64 - a bar that the same steps with TF32 on must miss (the
+``tf32_control`` phases); at bf16 reported, against the JAX bf16 record
+as it is and with every operation rounded. Each phase prints its step ms
+(CUDA events, steps 2-3) and peak memory. Then ``train_layout`` runs 20
+steps at 512 x 8, batch 32, bf16, end to end through its own PIL-free form
+generator, and prints its losses, then steps/s over 20 more steps and the
+device's idle share over 20 more under the profiler. (The rec trainer's own iterator renders
+lines with PIL and the DejaVu fonts, which the card machine lacks; the
+det trainer's renders 64 pages, about a minute, before its first step.
+Neither runs here; their steps are held above on the committed batches.)
 
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
@@ -60,6 +81,7 @@ them at a tiny size.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -815,6 +837,329 @@ def phase_scheduler(engine, pages) -> dict:
             "wall_s": sec, "pages_per_s": len(pages) / sec}
 
 
+# ---------------- training ----------------
+
+# The float32 bar of the training phases: this factor times the JAX
+# package's own spread (train_spread_probe.py: the range of each number over
+# 9 runs that differ only in rounding). The port's deviation from the JAX
+# record is the difference of two independent rounding draws, and the port
+# draws from a wider distribution than XLA's variants (other elementary
+# functions, other convolution algorithms): a factor of 4 allows its
+# rounding noise twice XLA's at about 4 standard deviations per number
+# (the range of 9 draws is ~3 of them), while a wrong BatchNorm or a
+# missing term moves these numbers by far more
+TRAIN_BAR_FACTOR = 4.0
+# Parameter-group norms whose spread is widened to the JAX record's own
+# distance from exact arithmetic (the port's float64 run of the same steps):
+# the layout heads' cross-entropy gradients are p - 1 for confident tokens,
+# one float32 ulp of p is a percent of that, and AdamW's first step, which
+# divides each gradient by its own size, carries it into the weights. No
+# variant of the probe changes how p is rounded, so the spread misses it:
+# on an H100 the JAX record lies 15.7 and 10.8 times its spread from the
+# float64 run on these two norms, and the port's float32 run, with only its
+# cross-entropy in float64, within 0.07 and 0.02 times it (``train_cause``)
+TRAIN_WIDENED = {"layout": ("type_head", "form_head")}
+# The float32 run's first-step loss and gradient norm against the float64
+# run's (relative): a sixteenth of TF32's unit roundoff (2^-11). The JAX
+# record cannot tell TF32 from float32 in det (it lies as far from exact as
+# a TF32 run does), the float64 run can: on an H100 float32 comes within
+# 7.9e-6 of it (rec's loss; det's and layout's within 6e-7), while TF32
+# moves the first loss 2.2e-4 (det) to 1.6e-3 (rec) from it
+EXACT_BAR = 2.0 ** -15
+TRAIN_MODELS = {"rec": "SVTR 192 x 6, Latin, 64 lines at W 320",
+                "det": "DBNet neck 96 with its threshold head, 8 pages at 640",
+                "layout": "layout transformer 512 x 8, 32 sequences at 768"}
+
+
+def train_model(name: str, dtype: str, loss_dtype=None):
+    """The model a trainer starts from, without weights, and its step
+    function (det without its augmentation, as the JAX record), at compute
+    ``dtype``; ``loss_dtype`` sets the layout heads' cross-entropy dtype."""
+    import torch
+
+    from ocr_system_tpu_torch.core.dtypes import DTypePolicy
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.models.dbnet import DBNet
+    from ocr_system_tpu_torch.models.layout_extractor import LayoutExtractor
+    from ocr_system_tpu_torch.models.recognizer import SVTRRecognizer
+    from ocr_system_tpu_torch.training import train as T
+
+    policy = DTypePolicy(compute_dtype=getattr(torch, dtype))
+    if name == "rec":
+        model = SVTRRecognizer(get_charset("latin").size, policy=policy)
+        step = T.make_rec_train_step()
+    elif name == "det":
+        model = DBNet(policy=policy, thresh_head=True)
+        step = T.make_det_train_step(augment=False)
+    else:
+        model = LayoutExtractor(get_charset("multilingual").size, dim=512, depth=8)
+        step = T.make_layout_train_step(policy.compute_dtype, loss_dtype)
+    return model, step
+
+
+def train_bar_misses(dev: dict, spread: dict) -> list[str]:
+    """The numbers of a float32 run (``utils/smoke.train_deviation`` against
+    the JAX record) farther from it than ``TRAIN_BAR_FACTOR`` times the JAX
+    package's own spread of that number (``assets/train_spread.json``, with
+    the ``TRAIN_WIDENED`` norms widened): the losses of the steps, the first
+    step's gradient norm, the parameter-group norms and the BatchNorm
+    statistics after the last."""
+    k = TRAIN_BAR_FACTOR
+    out = [f"loss step {i + 1}: {d:.3g} > {k} x {s:.3g}"
+           for i, (d, s) in enumerate(zip(dev["loss"], spread["loss"])) if d > k * s]
+    if dev["grad_norm"] > k * spread["grad_norm"]:
+        out.append(f"grad_norm step 1: {dev['grad_norm']:.3g} > {k} x {spread['grad_norm']:.3g}")
+    out += [f"norm {g}: {d:.3g} > {k} x {spread['group_norms'][g]:.3g}"
+            for g, d in dev["group_norms"].items() if d > k * spread["group_norms"][g]]
+    out += [f"{m}.{stat}: {d:.3g} > {k} x {spread['bn'][m][stat]:.3g}"
+            for m, stats in dev.get("bn", {}).items() for stat, d in stats.items()
+            if d > k * spread["bn"][m][stat]]
+    return out
+
+
+def exact_misses(got: dict, exact: dict) -> list[str]:
+    """The first step's loss and gradient norm of a float32 run farther than
+    ``EXACT_BAR`` (relative) from the float64 run's."""
+    out = []
+    for key in ("loss", "grad_norm"):
+        d = abs(got[key][0] - exact[key][0]) / abs(exact[key][0])
+        if d > EXACT_BAR:
+            out.append(f"{key} step 1: {d:.3g} from float64 > {EXACT_BAR:.3g}")
+    return out
+
+
+def train_record(model, metrics: list[dict], want: dict) -> tuple[dict, dict]:
+    """A run's numbers laid out as the JAX record's rows ``want``: per step
+    the loss, the gradient norm (and tag accuracy), after the last step
+    the parameter-group norms and the recorded BatchNorms' statistics; and
+    the model's final state dict on the host."""
+    from ocr_system_tpu_torch.training.train import group_norms
+
+    after = {k: v.cpu() for k, v in model.state_dict().items()}
+    got = {"loss": [m["loss"].item() for m in metrics],
+           "grad_norm": [m["grad_norm"].item() for m in metrics],
+           "group_norms": group_norms(after)}
+    if "tag_acc" in want:
+        got["tag_acc"] = [m["tag_acc"].item() for m in metrics]
+    if "bn" in want:
+        got["bn"] = {b: {k: after[f"{b}.{k}"].tolist() for k in ("running_mean", "running_var")}
+                     for b in want["bn"]}
+    return got, after
+
+
+def train_run(name: str, dtype: str, device, batch: dict, start: dict, lr: float, steps: int,
+              want: dict, tf32: bool = False, loss_dtype=None) -> tuple[dict, dict, float]:
+    """``steps`` steps of a trainer's step function on ``batch`` from the
+    weights ``start`` at compute ``dtype`` (float64: the parameters and
+    optimizer too), TF32 on or off in cuDNN and cuBLAS for the run (restored
+    after): the run's record (``train_record``), its final state dict and
+    its mean step ms over the steps after the first (CUDA events; host
+    clock on the CPU)."""
+    import torch
+
+    from ocr_system_tpu_torch.training import train as T
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        model, step = train_model(name, dtype, loss_dtype)
+        model.load_state_dict(start)
+        if dtype == "float64":
+            model.double()
+        state = T.init_state(model, lr, device)
+        model.train()
+        cuda = device.type == "cuda"
+        metrics, marks = [], []
+        for _ in range(steps):
+            if cuda:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            else:
+                marks.append(time.perf_counter())
+            state, m = step(state, batch)
+            metrics.append(m)
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+            warm_ms = marks[1].elapsed_time(marks[-1]) / (len(marks) - 2)
+        else:
+            marks.append(time.perf_counter())
+            warm_ms = (marks[-1] - marks[1]) * 1e3 / (len(marks) - 2)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    got, after = train_record(state.model, metrics, want)
+    if not (np.isfinite(got["loss"]).all() and np.isfinite(got["grad_norm"]).all()
+            and all(torch.isfinite(v).all() for v in after.values())):
+        raise AssertionError(f"train_{name}_{dtype}: non-finite values {got['loss']}")
+    return got, after, warm_ms
+
+
+def phase_train(name: str, dtype: str, device, expected: dict, bar: dict | None,
+                smi: str = "", n: int | None = None, strict: dict | None = None) -> dict:
+    """3 steps of a trainer's step function on its committed batch from the
+    trained weights (TF32 off), held against the JAX record of the same 3
+    steps (``assets/train_expected.json``). At float32 every number within
+    ``TRAIN_BAR_FACTOR`` times the JAX package's own spread
+    (``train_bar_misses``), and the same steps at float64 run as the exact
+    reference: the first step within ``EXACT_BAR`` of it
+    (``exact_misses``), and the ``TRAIN_WIDENED`` norms' spreads widened to
+    the JAX record's distance from it, with the cause shown in the same
+    run: the float32 run with its cross-entropy in float64 within the
+    unwidened bar of the float64 run there. At bf16 reported, against the
+    JAX bf16 record and ``strict`` (the JAX bf16 record with every
+    operation rounded, train_spread_probe.py --bf16). The start weights and
+    batch must be those the record was computed from (digests). Prints the
+    losses, the step ms (CUDA events, steps 2 and 3) and the peak device
+    memory. ``n`` cuts the batch to its first n samples and skips the
+    record (the CPU tests)."""
+    import torch
+
+    from ocr_system_tpu_torch.training import train as T
+    from ocr_system_tpu_torch.utils import smoke
+
+    device = torch.device(device)
+    want = expected[dtype][name]
+    batch = smoke.train_batches()[name]
+    start = smoke.train_start(name)
+    inputs = {"batch": smoke.digest(batch), "start": smoke.digest(start)}
+    if inputs != expected["inputs"][name]:
+        raise AssertionError(f"{name}: the committed batch or weights are not the record's")
+    if n is not None:
+        batch = {k: v[:n] for k, v in batch.items()}
+    batch = T.to_device(batch, device)
+    lr, steps = expected["lr"][name], expected["steps"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    got, _, warm_ms = train_run(name, dtype, device, batch, start, lr, steps, want)
+    row = {"phase": f"train_{name}_{dtype}", "model": TRAIN_MODELS[name],
+           "batch": {k: list(v.shape) for k, v in batch.items() if hasattr(v, "shape")},
+           "loss": got["loss"], "jax_loss": want["loss"], "grad_norm": got["grad_norm"],
+           "jax_grad_norm": want["grad_norm"]}
+    if "tag_acc" in got:
+        row.update(tag_acc=got["tag_acc"], jax_tag_acc=want["tag_acc"])
+    if cuda:
+        row.update(step_ms=warm_ms, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   nvidia_smi=smi)
+    else:
+        row["host_step_ms"] = warm_ms
+    if n is not None:
+        return row
+    dev = smoke.train_deviation(got, want)
+    row["deviation"] = dev
+    if dtype != "float32":
+        row["jax_strict_loss"] = strict[name]["loss"]
+        row["deviation_strict"] = smoke.train_deviation(got, strict[name])
+        return row
+    exact, _, _ = train_run(name, "float64", device, batch, start, lr, steps, want)
+    row["exact"] = {k: exact[k] for k in ("loss", "grad_norm")}
+    row["exact_misses"] = exact_misses(got, exact)
+    spread = copy.deepcopy(bar[name])
+    if name in TRAIN_WIDENED:
+        cause, _, _ = train_run(name, "float32", device, batch, start, lr, steps, want,
+                                loss_dtype=torch.float64)
+        row["train_cause"] = {}
+        for g in TRAIN_WIDENED[name]:
+            exact_g = exact["group_norms"][g]
+            jax_off, off, ce_off = (abs(r["group_norms"][g] - exact_g) / exact_g
+                                    for r in (want, got, cause))
+            row["train_cause"][g] = {"spread": spread["group_norms"][g], "jax_vs_float64": jax_off,
+                                     "float32_vs_float64": off,
+                                     "float32_ce_float64_vs_float64": ce_off}
+            if ce_off > TRAIN_BAR_FACTOR * spread["group_norms"][g]:
+                raise AssertionError(f"train_{name}_float32: with its cross-entropy in float64 "
+                                     f"the {g} norm is still {ce_off:.3g} from float64")
+            spread["group_norms"][g] = max(spread["group_norms"][g], jax_off)
+    row.update(spread=spread, bar_factor=TRAIN_BAR_FACTOR,
+               bar_misses=train_bar_misses(dev, spread))
+    if row["bar_misses"] or row["exact_misses"]:
+        raise AssertionError(f"train_{name}_float32 outside its bar: {json.dumps(row)}")
+    return row
+
+
+def phase_train_tf32_control(name: str, device, expected: dict, exact: dict) -> dict:
+    """The negative control of a float32 training phase: the same steps with
+    TF32 on in cuDNN and cuBLAS (10 mantissa bits in every product) must
+    miss the phase's exact bar against its float64 run (``exact``, the
+    phase's row); a control that passes means the bar cannot tell TF32 from
+    float32, and fails the phase. Its JAX deviation is reported."""
+    import torch
+
+    from ocr_system_tpu_torch.training import train as T
+    from ocr_system_tpu_torch.utils import smoke
+
+    device = torch.device(device)
+    want = expected["float32"][name]
+    batch = T.to_device(smoke.train_batches()[name], device)
+    got, _, _ = train_run(name, "float32", device, batch, smoke.train_start(name),
+                          expected["lr"][name], expected["steps"], want, tf32=True)
+    misses = exact_misses(got, exact)
+    row = {"phase": f"train_{name}_float32_tf32_control", "loss": got["loss"],
+           "exact": exact, "exact_misses": misses, "correct": not misses,
+           "deviation": smoke.train_deviation(got, want)}
+    if not misses:
+        raise AssertionError(f"train_{name}: TF32 passed the exact bar: {json.dumps(row)}")
+    return row
+
+
+def phase_train_layout_cli(device, steps: int = 20, batch_size: int = 32, max_len: int = 768,
+                           dim: int = 512, depth: int = 8, smi: str = "") -> dict:
+    """``train_layout`` end to end at bf16 through its own iterator (the
+    PIL-free form generator) from a from-scratch init: its first and last
+    losses. On the card then twice more from where it ended, each time
+    ``steps`` steps on the same stream: unprofiled, for steps/s (warm:
+    cuBLAS and the allocator set up by the first run), and under
+    torch.profiler with CUDA activity only, for the device's idle share
+    (the union of the kernel intervals against the run's wall time) -
+    whether the generator or the card sets the pace."""
+    import torch
+
+    from ocr_system_tpu_torch.core.dtypes import DTypePolicy
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.models.layout_extractor import LayoutExtractor
+    from ocr_system_tpu_torch.training import train as T
+
+    device = torch.device(device)
+    model = LayoutExtractor(get_charset("multilingual").size, dim=dim, depth=depth)
+    state = T.init_state(model, 3e-4, device, torch.Generator().manual_seed(SEED))
+    kw = dict(steps=steps, batch_size=batch_size, max_len=max_len, dim=dim, depth=depth,
+              policy=DTypePolicy(compute_dtype=torch.bfloat16), log_every=0, seed=SEED,
+              device=device)
+    row = {"phase": "train_layout_cli", "model": f"layout {dim} x {depth}, bf16",
+           "steps": steps, "batch": [batch_size, max_len]}
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed():
+        t = time.perf_counter()
+        _, metrics = T.train_layout(state=state, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        return metrics, (time.perf_counter() - t) * 1e3
+
+    metrics, first_ms = timed()
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"train_layout_cli: non-finite metrics {metrics}")
+    row.update(metrics)
+    if not cuda:
+        return {**row, "host_steps_per_s": steps / first_ms * 1e3}
+    from ocr_system_tpu_torch.utils.profile_wave import device_busy_ms
+
+    _, warm_ms = timed()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, prof_ms = timed()
+    busy = device_busy_ms(prof)
+    return {**row, "first_run_steps_per_s": steps / first_ms * 1e3,
+            "steps_per_s": steps / warm_ms * 1e3, "warm_wall_ms": warm_ms,
+            "profiled_wall_ms": prof_ms, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1.0 - busy / prof_ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": smi}
+
+
 # Spinning the card before the timed launches lets the host queue them
 # all first, so the events time the kernels and not the host's launch
 # overhead (a 15 us kernel is shorter than one Python wrapper call).
@@ -1181,6 +1526,24 @@ def main() -> int:
 
     # ---- phase 8: the host image operations on one form ----
     emit(phase_host_ops(forms[1]))
+    del hybrid
+
+    # ---- phase 9: training: 3 steps of each trainer on its committed
+    # batch from the trained weights, against the JAX record (float32
+    # within its bar, bf16 reported), then train_layout end to end ----
+    want_train, spread = smoke.train_expected(), smoke.train_spread()
+    for name in smoke.TRAIN_NAMES:
+        for dtype in ("float32", "bfloat16"):
+            t = time.perf_counter()
+            row = phase_train(name, dtype, dev, want_train, spread["float32"], smi,
+                              strict=spread["bfloat16_strict"])
+            emit({**row, "elapsed_s": time.perf_counter() - t})
+            if dtype == "float32":
+                t = time.perf_counter()
+                emit({**phase_train_tf32_control(name, dev, want_train, row["exact"]),
+                      "elapsed_s": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({**phase_train_layout_cli(dev, smi=smi), "elapsed_s": time.perf_counter() - t})
 
     sources = {
         "enhance": "ocr_system_tpu/kernels/preprocess_pallas.py:117",

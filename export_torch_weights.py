@@ -2,7 +2,7 @@
 """Carry the trained weights and a set of real forms over to the PyTorch
 port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
-    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service]
+    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train]
 
 Writes, in ocr_system_tpu_torch/:
 
@@ -58,6 +58,24 @@ Writes, in ocr_system_tpu_torch/:
   type, page dimensions, layout box count, fields with their boxes and
   validation, and its JSON and CSV exports, masked
   (utils/smoke.service_record). ``--only service`` writes just these two.
+
+- weights/det_thresh.npz: the training threshold head of checkpoints/det
+  (core/weights.dbnet_state_dict(..., thresh_head=True)), which det.npz,
+  the serving model, leaves out;
+- assets/train_batches.npz: one batch of each trainer, drawn by the JAX
+  package's own iterators (training/train.py) at fixed seeds at the
+  train_models CLI's defaults: rec 64 lines at width 320 (Latin), det 8
+  pages at 640 in the wire format, layout 32 sequences at max_len 768
+  (multilingual); compressed, each array under ``<trainer>/<key>``;
+- assets/train_expected.json: the JAX package's record of 3 train steps
+  on those batches at float32 and at bfloat16 compute, each trainer from
+  the trained weights (rec: checkpoints/rec_latin; det: checkpoints/det
+  with its threshold head, without augmentation; layout: the bf16-rounded
+  checkpoints/extract the port serves): per step the loss (and the layout
+  tag accuracy), the global gradient norm before the clip, and after step
+  3 the norm of each top-level parameter group and, for rec and det, the
+  running statistics of the first and last BatchNorm (jax_train_record).
+  ``--only train`` writes just these three.
 
 chip_smoke.py loads all of them and holds the port against the JAX
 package on the card. This tool imports JAX, so it stays outside the
@@ -403,9 +421,211 @@ def export_service() -> list[Path]:
     return [smoke.SERVICE_UPLOAD, smoke.SERVICE_EXPECTED]
 
 
+# the train record: seeds of the committed batches, steps, the first and
+# last BatchNorm whose running statistics are recorded
+TRAIN_SEEDS = {"rec": 11, "det": 12, "layout": 13}
+TRAIN_STEPS = 3
+TRAIN_LR = {"rec": 1e-3, "det": 1e-3, "layout": 3e-4}
+TRAIN_BN = {"rec": ("stem.0.bn", "stem.2.bn"), "det": ("backbone.stem.bn", "thresh_head.bn")}
+
+
+def train_batches() -> dict[str, dict[str, np.ndarray]]:
+    """One batch of each trainer from the JAX package's iterators at the CLI
+    defaults (the det iterator's pool races two workers, so its batch is
+    whatever this run drew)."""
+    from ocr_system_tpu.models.charsets import get_charset
+    from ocr_system_tpu.training import train as T
+
+    rec = next(T.rec_batch_iterator(get_charset("latin"), 64, width=320,
+                                    seed=TRAIN_SEEDS["rec"]))
+    det_it = T.det_batch_iterator(8, size=640, seed=TRAIN_SEEDS["det"])
+    det = next(det_it)
+    det_it.close()
+    layout = next(T.layout_batch_iterator(get_charset("multilingual"), 32, max_len=768,
+                                          seed=TRAIN_SEEDS["layout"], pos_span=2048))
+    return {"rec": rec, "det": det, "layout": layout}
+
+
+def save_train_batches(batches: dict) -> Path:
+    from ocr_system_tpu_torch.utils.smoke import TRAIN_BATCHES
+
+    np.savez_compressed(TRAIN_BATCHES, **{f"{name}/{k}": v for name, batch in batches.items()
+                                          for k, v in batch.items()})
+    return TRAIN_BATCHES
+
+
+def _record_grad_norm():
+    """An optax transformation that passes the gradients on and keeps their
+    global norm in its state: the norm before the clip, read after a step."""
+    import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(
+        lambda params: jnp.zeros((), jnp.float32),
+        lambda updates, state, params=None: (updates, optax.global_norm(updates)))
+
+
+def _jax_det_step(model, optimizer):
+    """The JAX det step without its augmentation (which draws from the JAX
+    PRNG, which the port cannot match): the wire decode as
+    make_det_train_step writes it, normalize_for_model, DBNet.apply and
+    db_loss, and the same update."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ocr_system_tpu.models.dbnet import db_loss
+    from ocr_system_tpu.ops.image_ops import normalize_for_model
+    from ocr_system_tpu.training.train import TrainState
+
+    def unpack(packed, width):  # np.packbits order
+        bits = (packed[..., None] >> jnp.arange(7, -1, -1, dtype=jnp.uint8)) & 1
+        return bits.reshape(*packed.shape[:-1], -1)[..., :width].astype(jnp.float32)
+
+    def loss_fn(params, batch_stats, batch):
+        packed = batch["images"]
+        b, s = packed.shape[0], packed.shape[1]
+        hi = (packed >> 4).astype(jnp.float32)
+        lo = (packed & 15).astype(jnp.float32)
+        f = jnp.stack([hi, lo], axis=-1).reshape(b, s, s) / 15.0
+        out, mutated = model.apply({"params": params, "batch_stats": batch_stats},
+                                   jax.vmap(normalize_for_model)(f), train=True,
+                                   mutable=["batch_stats"])
+        thresh = jax.image.resize(batch["thresh_map"].astype(jnp.float32) / 255.0,
+                                  (b, s, s), method="bilinear")
+        loss = db_loss(out, unpack(batch["shrink_bits"], s), unpack(batch["smask_bits"], s),
+                       thresh, unpack(batch["tmask_bits"], s))
+        return loss, mutated["batch_stats"]
+
+    def step(state, batch):
+        (loss, new_bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            state.params, state.batch_stats, batch)
+        updates, new_opt = optimizer.update(grads, state.opt_state, state.params)
+        return (TrainState(optax.apply_updates(state.params, updates), new_bs, new_opt,
+                           state.step + 1), {"loss": loss})
+
+    return jax.jit(step)
+
+
+def jax_train_record(batches: dict, dtypes=DTYPES, trainers=("rec", "det", "layout"),
+                     ulp_seed: int | None = None) -> dict:
+    """TRAIN_STEPS steps of each JAX trainer on its committed batch from the
+    trained weights, at each compute dtype (module doc). With ``ulp_seed``,
+    every start value is first moved one float32 ulp up or down at random
+    (train_spread_probe.py: the same weights rounded otherwise)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.core.dtypes import DTypePolicy
+    from ocr_system_tpu.core.mesh import build_mesh
+    from ocr_system_tpu.engine.detector import Detector as JaxDetector
+    from ocr_system_tpu.engine.recognizer import Recognizer as JaxRecognizer
+    from ocr_system_tpu.extract.layout_model import LayoutModelExtractor
+    from ocr_system_tpu.models.charsets import get_charset
+    from ocr_system_tpu.models.dbnet import DBNet
+    from ocr_system_tpu.models.layout_extractor import LayoutExtractor
+    from ocr_system_tpu.models.recognizer import SVTRRecognizer
+    from ocr_system_tpu.training import train as T
+    from ocr_system_tpu_torch.core import weights
+    from ocr_system_tpu_torch.training.train import group_norms
+    from ocr_system_tpu_torch.utils.smoke import digest
+
+    tree = lambda v: jax.tree.map(np.asarray, v)  # noqa: E731
+    mesh = build_mesh("dp=1")
+    s = JaxSettings(det_checkpoint=str(REPO / "checkpoints/det"),
+                    rec_checkpoint=str(REPO / "checkpoints/rec_latin"), rec_charset="latin",
+                    extract_checkpoint=str(REPO / "checkpoints/extract"))
+    start = {}
+    if "rec" in trainers:
+        start["rec"] = tree(JaxRecognizer(s).variables)
+    if "det" in trainers:
+        start["det"] = tree(JaxDetector(s).variables)
+    if "layout" in trainers:
+        start["layout"] = {"params": tree(rounded_bf16(LayoutModelExtractor(s).variables))["params"]}
+    if ulp_seed is not None:
+        rng = np.random.default_rng(ulp_seed)
+
+        def nudge(a):
+            a = np.asarray(a, np.float32)
+            return np.where(rng.random(a.shape) < 0.5, np.nextafter(a, np.float32(np.inf)),
+                            np.nextafter(a, np.float32(-np.inf))).astype(np.float32)
+
+        start = {name: jax.tree.map(nudge, v) for name, v in start.items()}
+    to_torch = {"rec": weights.svtr_state_dict,
+                "det": lambda v: weights.dbnet_state_dict(v, thresh_head=True),
+                "layout": weights.layout_state_dict}
+    # what the record was computed from, for the staleness test and the
+    # card's check that it starts from the same weights and batches
+    inputs = {name: {"batch": digest(batches[name]), "start": digest(to_torch[name](start[name]))}
+              for name in trainers}
+    record: dict = {"jax": jax.__version__, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+                    "seeds": TRAIN_SEEDS, "bn": TRAIN_BN, "inputs": inputs}
+    for dt in dtypes:
+        policy = DTypePolicy(compute_dtype=getattr(jnp, dt))
+        record[dt] = {}
+        for name in trainers:
+            optimizer = optax.chain(_record_grad_norm(), T.make_optimizer(TRAIN_LR[name]))
+            if name == "rec":
+                model = SVTRRecognizer(vocab_size=get_charset("latin").size, policy=policy)
+                step = T.make_rec_train_step(model, optimizer, mesh)
+            elif name == "det":
+                model = DBNet(policy=policy)
+                step = _jax_det_step(model, optimizer)
+            else:
+                model = LayoutExtractor(vocab_size=get_charset("multilingual").size,
+                                        dim=512, depth=8, policy=policy)
+                step = T.make_layout_train_step(model, optimizer, mesh)
+            params = jax.tree.map(jnp.asarray, start[name]["params"])
+            stats = jax.tree.map(jnp.asarray, start[name].get("batch_stats", {}))
+            state = T.TrainState(params, stats, optimizer.init(params), 0)
+            batch = {k: jnp.asarray(v) for k, v in batches[name].items()}
+            rows: dict = {"loss": [], "grad_norm": []}
+            for _ in range(TRAIN_STEPS):
+                state, metrics = step(state, batch)
+                rows["loss"].append(float(metrics["loss"]))
+                rows["grad_norm"].append(float(state.opt_state[0]))
+                if "tag_acc" in metrics:
+                    rows.setdefault("tag_acc", []).append(float(metrics["tag_acc"]))
+            after = to_torch[name]({"params": tree(state.params),
+                                    "batch_stats": tree(state.batch_stats)})
+            rows["group_norms"] = group_norms(after)
+            if name in TRAIN_BN:
+                rows["bn"] = {m: {"running_mean": after[f"{m}.running_mean"].tolist(),
+                                  "running_var": after[f"{m}.running_var"].tolist()}
+                              for m in TRAIN_BN[name]}
+            record[dt][name] = rows
+            print(f"train record {dt} {name}: loss {rows['loss']}", flush=True)
+    return record
+
+
+def export_train() -> list[Path]:
+    """weights/det_thresh.npz, assets/train_batches.npz and
+    assets/train_expected.json (module doc)."""
+    import jax
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.engine.detector import Detector as JaxDetector
+    from ocr_system_tpu_torch.core import weights
+
+    det = jax.tree.map(np.asarray, JaxDetector(JaxSettings(
+        det_checkpoint=str(REPO / "checkpoints/det"))).variables)
+    thresh = weights.save_npz(WEIGHTS / "det_thresh.npz", {
+        k: v for k, v in weights.dbnet_state_dict(det, thresh_head=True).items()
+        if k.startswith("thresh_head.")})
+    from ocr_system_tpu_torch.utils.smoke import TRAIN_EXPECTED
+
+    batches = train_batches()
+    record = jax_train_record(batches)
+    TRAIN_EXPECTED.write_text(json.dumps(record, indent=1) + "\n")
+    return [thresh, save_train_batches(batches), TRAIN_EXPECTED]
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--only", "service"]:
-        for path in export_service():
+    only = {"service": export_service, "train": export_train}
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:3] and sys.argv[2] in only:
+        for path in only[sys.argv[2]]():
             print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
         return 0
     import jax
@@ -457,8 +677,9 @@ def main() -> int:
     glued = export_glued()
     extract = export_extract()
     service = export_service()
+    train = export_train()
     for path in (*written, ASSETS / "smoke_forms.npz", ASSETS / "hindi_forms.npz",
-                 ASSETS / "smoke_forms_expected.json", *glued, *extract, *service):
+                 ASSETS / "smoke_forms_expected.json", *glued, *extract, *service, *train):
         print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
     for key in waves:
         for dt in DTYPES:

@@ -38,6 +38,13 @@ class DTypePolicy:
         return policy
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, the dtype of the policy's float32 islands
+    (statistics, the heads, the losses), or as it is when it is float64: a
+    float64 run keeps them exact (the training phases' exact reference)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def default_policy() -> DTypePolicy:
     return DTypePolicy()
 

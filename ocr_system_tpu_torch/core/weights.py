@@ -13,7 +13,9 @@ port's modules. Conversion rules, each checked by the parity tests:
 - BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``.
 
-Train-only parameters (DBNet's ``thresh_head``) are ignored.
+DBNet's ``thresh_head`` exists for training only: ``dbnet_state_dict``
+converts it when asked (``thresh_head=True``), and a serving model drops it
+on load (``load_weights``, the model's ``TRAIN_ONLY`` prefixes).
 ``save_npz``/``load_npz`` keep a flat numpy copy of a state dict (numpy has
 no bf16: a bf16 tensor is stored as its uint16 bit pattern under its key
 plus ``BF16_SUFFIX``); ``load_weights`` fills a model from one of those,
@@ -93,8 +95,19 @@ def _inverted_residual(p: Tree, s: Tree) -> dict[str, np.ndarray]:
     return out
 
 
-def dbnet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
-    """flax DBNet variables -> ``models.dbnet.DBNet`` state dict."""
+def _db_head(prefix: str, p: Tree, s: Tree) -> dict[str, np.ndarray]:
+    return {
+        **_prefixed(f"{prefix}.conv", _conv_bn_act(p["ConvBNAct_0"], s["ConvBNAct_0"])),
+        **_prefixed(f"{prefix}.up1", _conv_transpose(p["ConvTranspose_0"])),
+        **_prefixed(f"{prefix}.bn", _bn(p["BatchNorm_0"], s["BatchNorm_0"])),
+        **_prefixed(f"{prefix}.up2", _conv_transpose(p["ConvTranspose_1"])),
+    }
+
+
+def dbnet_state_dict(variables: Tree, thresh_head: bool = False) -> dict[str, torch.Tensor]:
+    """flax DBNet variables -> ``models.dbnet.DBNet`` state dict: the serving
+    model's, or with ``thresh_head`` also the training threshold head's
+    (``DBNet(thresh_head=True)``)."""
     p, s = variables["params"], variables["batch_stats"]
     out: dict[str, np.ndarray] = {}
     bp, bs = p["Backbone_0"], s["Backbone_0"]
@@ -112,12 +125,8 @@ def dbnet_state_dict(variables: Tree) -> dict[str, torch.Tensor]:
             name = f"ConvBNAct_{k}"
             out.update(_prefixed(f"neck.{part}.{j}",
                                  _conv_bn_act(npl[name], nsl[name])))
-    hp, hs = p["prob_head"], s["prob_head"]
-    out.update(_prefixed("prob_head.conv", _conv_bn_act(
-        hp["ConvBNAct_0"], hs["ConvBNAct_0"])))
-    out.update(_prefixed("prob_head.up1", _conv_transpose(hp["ConvTranspose_0"])))
-    out.update(_prefixed("prob_head.bn", _bn(hp["BatchNorm_0"], hs["BatchNorm_0"])))
-    out.update(_prefixed("prob_head.up2", _conv_transpose(hp["ConvTranspose_1"])))
+    for head in ("prob_head", "thresh_head")[: 1 + thresh_head]:
+        out.update(_db_head(head, p[head], s[head]))
     return _to_torch(out)
 
 
@@ -238,4 +247,13 @@ def load_weights(model: torch.nn.Module, checkpoint: str, state_dict, seed: int)
         logger.warning("no checkpoint set; using RANDOM init (seed %d)", seed)
         init_random_(model, torch.Generator().manual_seed(seed))
     else:
-        model.load_state_dict(state_dict)
+        model.load_state_dict(drop_train_only(model, state_dict))
+
+
+def drop_train_only(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> dict:
+    """``state`` without the training-only entries (the model's
+    ``TRAIN_ONLY`` prefixes) that ``model`` has no place for: a trained DBNet
+    checkpoint loads into the serving DBNet."""
+    prefixes = getattr(model, "TRAIN_ONLY", ())
+    own = model.state_dict()
+    return {k: v for k, v in state.items() if k in own or not k.startswith(prefixes)}

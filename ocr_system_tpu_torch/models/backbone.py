@@ -4,6 +4,9 @@ ocr_system_tpu/models/backbone.py).
 MobileNetV3-style inverted residuals, squeeze-excite in stages >= 2,
 hard-swish activations, and a top-down FPN whose upsampling is
 nearest-neighbour repetition (``jnp.repeat`` in the reference). NCHW inside.
+``train`` is threaded as in the flax modules: it puts each BatchNorm on its
+batch statistics, except an inverted residual's projection, which the
+reference calls without it (so it always reads its running statistics).
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ class ConvBNAct(nn.Module):
         self.bn = BatchNorm(cout)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.bn(self.conv(x), train)
         return F.hardswish(x) if self.act else x
 
 
@@ -55,11 +58,11 @@ class InvertedResidual(nn.Module):
         self.project = ConvBNAct(expand, features, 1, act=False)
         self.residual = stride == 1 and cin == features
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.depthwise(self.expand_conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.depthwise(self.expand_conv(x, train), train)
         if self.se is not None:
             h = self.se(h)
-        h = self.project(h)
+        h = self.project(h)  # no train: the reference's quirk, kept
         return h + x if self.residual else h
 
 
@@ -85,11 +88,11 @@ class Backbone(nn.Module):
         self.stage_ends = ends
         self.stage_features = tuple(stage_features)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        x = self.stem(x, train)
         feats = []
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = block(x, train)
             if i in self.stage_ends:
                 feats.append(x)
         return feats  # strides 4, 8, 16, 32
@@ -111,15 +114,15 @@ class FPNNeck(nn.Module):
             ConvBNAct(out_features, out_features // 4, 3) for _ in in_features
         )
 
-    def forward(self, feats: list[torch.Tensor]) -> torch.Tensor:
-        lat = [conv(f) for conv, f in zip(self.lateral, feats)]
+    def forward(self, feats: list[torch.Tensor], train: bool = False) -> torch.Tensor:
+        lat = [conv(f, train) for conv, f in zip(self.lateral, feats)]
         for i in range(len(lat) - 2, -1, -1):
             h, w = lat[i].shape[-2:]
             lat[i] = lat[i] + _repeat2d(lat[i + 1], 2)[..., :h, :w]
         h, w = lat[0].shape[-2:]
         outs = []
         for i, (conv, f) in enumerate(zip(self.smooth, lat)):
-            f = conv(f)
+            f = conv(f, train)
             if i:
                 f = _repeat2d(f, 2**i)[..., :h, :w]
             outs.append(f)

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ocr_system_tpu_torch.core.dtypes import widen
+
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     """flax/XLA ``padding="SAME"``: output ceil(n / s); an odd total pad puts
@@ -51,22 +53,41 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm with flax's arithmetic: ``(x - mean) * (scale *
-    rsqrt(var + eps)) + bias`` in float32 (the float32 statistics promote
-    it), rounded once to x's dtype. Names follow ``nn.BatchNorm2d``."""
+    """BatchNorm with flax's arithmetic (``nn.BatchNorm``, momentum 0.99,
+    epsilon 1e-5). ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` in
+    float32 (the float32 statistics promote it), rounded once to x's dtype.
+    Inference reads the running statistics; ``train=True`` normalises with
+    the batch's own float32 statistics over every axis but the channel, the
+    variance as E[x^2] - E[x]^2 clipped at 0 (flax's ``use_fast_variance``),
+    and moves the running ones to ``momentum * running + (1 - momentum) *
+    batch`` with that biased variance (``nn.BatchNorm2d`` would use momentum
+    the other way round and the unbiased variance). Names follow
+    ``nn.BatchNorm2d``."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = widen(x)
+        if train:
+            dims = [0, *range(2, x.dim())]
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -86,7 +107,7 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(
-            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+            widen(x), self.normalized_shape, self.weight, self.bias, self.eps
         )
         return y.to(x.dtype)
 
@@ -110,4 +131,50 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 )
                 if m.bias is not None:
                     m.bias.zero_()
+    return module
+
+
+# flax's lecun_normal draws a normal truncated at two standard deviations and
+# divides the scale by this factor, the standard deviation of that truncated
+# unit normal, so the draw's variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _fan_in(m: nn.Module) -> int:
+    w = m.weight
+    # ConvTranspose2d stores (in, out, kh, kw): fan_in is dim 0
+    if isinstance(m, nn.ConvTranspose2d):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
+def truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``truncated_normal``: a unit normal truncated to [-2, 2], times
+    ``std``."""
+    with torch.no_grad():
+        d = torch.empty(t.shape)
+        nn.init.trunc_normal_(d, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t.copy_(d * std)
+
+
+def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded from-scratch init with flax's default initializers, the ones a
+    flax ``model.init`` gives these modules: ``lecun_normal`` conv and
+    Dense kernels (truncated normal, variance 1 / fan_in), zero biases,
+    BatchNorm at identity with zero mean and unit variance statistics, unit
+    LayerNorm. Models with parameters of their own (position tables,
+    embeddings) finish in their ``init_flax_``. Draws on the CPU from
+    ``generator``, so a seed gives the same weights on every device."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                truncated_normal_(m.weight, 1.0 / (_fan_in(m) ** 0.5 * _TRUNC_STD), generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (BatchNorm, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, BatchNorm):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
     return module

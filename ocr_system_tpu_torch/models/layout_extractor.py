@@ -15,7 +15,8 @@ take a -1e9 mask bias in their own dtype, the MLP uses the tanh GELU
 embeddings add left to right, ``((tok + c0) + c1) + c2 + c3 + pos``, which
 matters in bf16. Attention is plain PyTorch (the JAX package computes it
 in plain XLA, outside any Pallas kernel). Sequence-parallel ring attention
-is not ported.
+is not ported. Training slides each sample's window of the position table
+(``pos_offset``) and minimises ``extraction_loss``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocr_system_tpu_torch.models.layers import Dense, LayerNorm, init_random_
+from ocr_system_tpu_torch.core.dtypes import widen
+from ocr_system_tpu_torch.models.layers import Dense, LayerNorm, init_flax_, init_random_
 from ocr_system_tpu_torch.service.validation import FieldType
 
 # BIO tag space: O + {B-,I-} x {key, value}. Field type is predicted
@@ -109,16 +111,36 @@ class LayoutExtractor(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
         return self
 
+    def init_flax_(self, generator: torch.Generator) -> "LayoutExtractor":
+        """flax's initializers for this module: ``xavier_uniform`` Dense
+        kernels, zero biases, unit LayerNorm, ``normal(0.02)`` embeddings
+        and position table."""
+        init_flax_(self, generator)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    fan_out, fan_in = m.weight.shape
+                    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+                    m.weight.copy_(
+                        (torch.rand(m.weight.shape, generator=generator) * 2 - 1) * limit)
+            for p in (self.tok_embed.weight, self.coord_embed.weight, self.pos_embed):
+                p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        return self
+
     def forward(
         self,
         token_ids: torch.Tensor,
         boxes: torch.Tensor,
         mask: torch.Tensor,
         dtype: torch.dtype = torch.float32,
+        pos_offset: torch.Tensor | None = None,
     ) -> dict[str, torch.Tensor]:
         """token_ids: (B, L) int; boxes: (B, L, 4) int in [0, 1024)
         (x0, y0, x1, y1 quantized); mask: (B, L), nonzero = valid; dtype:
-        the compute dtype.
+        the compute dtype; pos_offset: optional (B,) int, each sample's start
+        in the position table (training slides windows over all ``max_len``
+        positions; serving starts at 0). A start past ``max_len - L`` is
+        clamped, as ``jax.lax.dynamic_slice`` does.
 
         Returns tag_logits (B, L, NUM_TAGS), type_logits (B, L,
         NUM_FIELD_TYPES), form_logits (B, NUM_FORM_TYPES) and confidence
@@ -131,7 +153,13 @@ class LayoutExtractor(nn.Module):
         x = self.tok_embed(token_ids).to(dtype)
         x = x + coord(0) + coord(1)
         x = x + coord(2) + coord(3)
-        x = x + self.pos_embed[:, : x.shape[1]].to(dtype)
+        t = x.shape[1]
+        if pos_offset is None:
+            pos = self.pos_embed[:, :t]
+        else:
+            start = pos_offset.long().clamp(0, self.max_len - t)
+            pos = self.pos_embed[0][start[:, None] + torch.arange(t, device=x.device)]
+        x = x + pos.to(dtype)
         bias = torch.zeros(mask.shape, dtype=dtype, device=x.device).masked_fill(
             ~mask, MASK_BIAS)[:, None, None, :]
         for blk in self.blocks:
@@ -143,8 +171,26 @@ class LayoutExtractor(nn.Module):
         denom = mask.sum(dim=1, keepdim=True).clamp_min(1).to(dtype)
         form_logits = self.form_head((x * m).sum(dim=1) / denom)
         return {
-            "tag_logits": self.tag_head(x).float(),
-            "type_logits": self.type_head(x).float(),
-            "form_logits": form_logits.float(),
-            "confidence": conf.float(),
+            "tag_logits": widen(self.tag_head(x)),
+            "type_logits": widen(self.type_head(x)),
+            "form_logits": widen(form_logits),
+            "confidence": widen(conf),
         }
+
+
+def extraction_loss(outputs: dict, tags: torch.Tensor, types: torch.Tensor,
+                    form: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Token-tag CE + token-type CE (on non-O tokens) + 0.2 x form CE.
+    tags/types: (B, L) int labels; form: (B,) int; mask: (B, L)."""
+    mask = mask.float()
+
+    def ce(logits, labels, m):
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+    tag_loss = ce(outputs["tag_logits"], tags, mask)
+    type_loss = ce(outputs["type_logits"], types, mask * (tags > 0))
+    logp = torch.log_softmax(outputs["form_logits"], dim=-1)
+    form_loss = -logp.gather(-1, form.long()[:, None]).mean()
+    return tag_loss + type_loss + 0.2 * form_loss

@@ -12,9 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocr_system_tpu_torch.core.dtypes import DTypePolicy, default_policy
+from ocr_system_tpu_torch.core.dtypes import DTypePolicy, default_policy, widen
 from ocr_system_tpu_torch.models.backbone import ConvBNAct
-from ocr_system_tpu_torch.models.layers import Dense, LayerNorm
+from ocr_system_tpu_torch.models.layers import Dense, LayerNorm, init_flax_, truncated_normal_
 
 
 class MixerBlock(nn.Module):
@@ -47,7 +47,7 @@ class MixerBlock(nn.Module):
         logits = logits.masked_fill(
             ~mask[:, None, None, :], torch.finfo(logits.dtype).min
         )
-        w = torch.softmax(logits.float(), dim=-1).to(h.dtype)
+        w = torch.softmax(widen(logits), dim=-1).to(h.dtype)
         return self.out((w @ v).transpose(1, 2).reshape(b, t, d))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -73,15 +73,27 @@ class SVTRRecognizer(nn.Module):
         self.norm = LayerNorm(dim)
         self.head = nn.Linear(dim, vocab_size)
 
-    def forward(self, x_nhwc: torch.Tensor, widths: torch.Tensor | None = None):
-        return self.forward_nchw(x_nhwc.permute(0, 3, 1, 2), widths)
+    def init_flax_(self, generator: torch.Generator) -> "SVTRRecognizer":
+        """flax's initializers (``layers.init_flax_``), the position table
+        ``truncated_normal(0.02)``."""
+        init_flax_(self, generator)
+        truncated_normal_(self.pos_embed, 0.02, generator)
+        return self
 
-    def forward_nchw(self, x: torch.Tensor, widths: torch.Tensor | None = None):
-        """x: (B, 3, 48, W); widths: (B,) valid pixel widths (<= W).
+    def forward(self, x_nhwc: torch.Tensor, widths: torch.Tensor | None = None,
+                train: bool = False):
+        return self.forward_nchw(x_nhwc.permute(0, 3, 1, 2), widths, train)
+
+    def forward_nchw(self, x: torch.Tensor, widths: torch.Tensor | None = None,
+                     train: bool = False):
+        """x: (B, 3, 48, W); widths: (B,) valid pixel widths (<= W); train:
+        the stem's BatchNorms on their batch statistics.
         Returns (logits (B, T, V) float32, logit_lengths (B,) int32),
         T = W // 4."""
         w_in = x.shape[-1]
-        x = self.stem(self.policy.cast_compute(x))
+        x = self.policy.cast_compute(x)
+        for conv in self.stem:
+            x = conv(x, train)
         x = x.mean(dim=2).transpose(1, 2)  # collapse height: (B, T, D)
         b, t, _ = x.shape
         if widths is None:
@@ -96,5 +108,5 @@ class SVTRRecognizer(nn.Module):
             x = block(x, mask)
         x = self.norm(x)
         # the CTC projection runs in float32 (flax Dense(dtype=float32))
-        logits = F.linear(x.float(), self.head.weight, self.head.bias)
+        logits = F.linear(widen(x), self.head.weight, self.head.bias)
         return logits, lengths

@@ -72,6 +72,24 @@ def _host_rows(prof: cProfile.Profile) -> dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def device_busy_ms(prof) -> float | None:
+    """The device's busy time under a ``torch.profiler`` run: the union of
+    its CUDA kernel intervals, in ms (None when it traced none)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda)
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy + cur_e - cur_s) / 1e3
+
+
 def profile(engine, pages) -> tuple[dict, str]:
     """One warm-up wave, then one wave under both profilers: the JSON row
     and the full tables."""
@@ -88,20 +106,7 @@ def profile(engine, pages) -> tuple[dict, str]:
         host.disable()
         wall_ms = (time.perf_counter() - t) * 1e3
 
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in dev_prof.events() if e.device_type == cuda]
-    busy_ms = None
-    if events:
-        # union of kernel intervals: the device's busy time over the wave
-        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-        busy, cur_s, cur_e = 0.0, *spans[0]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy_ms = (busy + cur_e - cur_s) / 1e3
+    busy_ms = device_busy_ms(dev_prof)
     averages = dev_prof.key_averages()
     table = averages.table(sort_by="self_device_time_total", row_limit=30)
     device_top = sorted(

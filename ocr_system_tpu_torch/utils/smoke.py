@@ -6,8 +6,10 @@ and synthetic pages and checkboxes drawn with numpy from a seed; the
 record and comparison of a page's layout, routing and rescues against
 those outputs; the extraction documents built from those outputs and the
 record and comparison of their fields, field rows and validation reports
-against the JAX package's (``assets/extract_expected.json``); and the bf16
-agreement rules that chip_smoke.py and the tests share."""
+against the JAX package's (``assets/extract_expected.json``); the
+trainers' committed batches, start weights and the JAX package's record of
+3 steps on them (``assets/train_*``); and the bf16 agreement rules that
+chip_smoke.py and the tests share."""
 
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ GLUED_EXPECTED = PACKAGE / "assets" / "glued_lines_expected.json"
 EXTRACT_EXPECTED = PACKAGE / "assets" / "extract_expected.json"
 # the service phase's upload: the committed Latin forms as a scanned PDF,
 # and the JAX application's extraction of it
+TRAIN_BATCHES = PACKAGE / "assets" / "train_batches.npz"
+TRAIN_EXPECTED = PACKAGE / "assets" / "train_expected.json"
+TRAIN_SPREAD = PACKAGE / "assets" / "train_spread.json"
 SERVICE_UPLOAD = PACKAGE / "assets" / "service_upload.pdf"
 SERVICE_EXPECTED = PACKAGE / "assets" / "service_expected.json"
 # 72 dpi: one PDF point per pixel, so that the renderer pastes each page
@@ -603,3 +608,82 @@ def app_upload(app, request_cls, data: bytes, filename: str) -> dict:
     exports = [asyncio.run(call("GET", f"/api/exports/extraction/{ext['id']}/{fmt}"))
                for fmt in ("json", "csv")]
     return service_record(ext, *exports)
+
+
+# ---------------- training ----------------
+
+TRAIN_NAMES = ("rec", "det", "layout")
+
+
+def digest(arrays) -> str:
+    """sha256 of a mapping of arrays (numpy or torch), keys sorted: names,
+    dtypes, shapes and bytes. The JAX training record keeps the digests of
+    the batches and start weights it was computed from."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        v = arrays[k]
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        h.update(f"{k}:{a.dtype}:{a.shape}:".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def train_batches() -> dict[str, dict[str, np.ndarray]]:
+    """The committed batch of each trainer (``TRAIN_BATCHES``: arrays under
+    ``<trainer>/<key>``)."""
+    out: dict[str, dict[str, np.ndarray]] = {}
+    with np.load(TRAIN_BATCHES) as z:
+        for key in z.files:
+            name, k = key.split("/", 1)
+            out.setdefault(name, {})[k] = z[key]
+    return out
+
+
+def train_expected() -> dict:
+    return json.loads(TRAIN_EXPECTED.read_text())
+
+
+def train_spread() -> dict:
+    return json.loads(TRAIN_SPREAD.read_text())
+
+
+def train_start(name: str) -> dict[str, torch.Tensor]:
+    """A trainer's float32 start weights from the committed files: rec the
+    Latin recognizer, det the detector with its training threshold head
+    (``weights/det_thresh.npz``), layout the served bf16-but-LayerNorm
+    extractor, widened to float32."""
+    from ocr_system_tpu_torch.core.weights import load_npz
+
+    w = PACKAGE / "weights"
+    if name == "rec":
+        state = load_npz(w / "rec_latin.npz")
+    elif name == "det":
+        state = {**load_npz(w / "det.npz"), **load_npz(w / "det_thresh.npz")}
+    else:
+        state = load_npz(w / "extract.npz")
+    return {k: v.float() for k, v in state.items()}
+
+
+def _rel(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def train_deviation(got: dict, ref: dict) -> dict:
+    """One trainer's record ``got`` against ``ref`` (the JAX record's rows:
+    per step the loss, the gradient norm, the layout tag accuracy; after
+    the last step the parameter-group norms and BatchNorm statistics), each
+    number as its relative deviation (tag accuracy: absolute)."""
+    out = {"loss": [_rel(a, b) for a, b in zip(got["loss"], ref["loss"], strict=True)],
+           "grad_norm": _rel(got["grad_norm"][0], ref["grad_norm"][0]),
+           "group_norms": {g: _rel(got["group_norms"][g], v)
+                           for g, v in ref["group_norms"].items()}}
+    if "tag_acc" in ref:
+        out["tag_acc"] = [abs(a - b) for a, b in zip(got["tag_acc"], ref["tag_acc"])]
+    if "bn" in ref:
+        out["bn"] = {m: {k: _rel(got["bn"][m][k], v) for k, v in stats.items()}
+                     for m, stats in ref["bn"].items()}
+    return out

@@ -1,10 +1,13 @@
 """The card machine's package list as a test: the port and chip_smoke.py
-import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, safetensors
-and the JAX package all refused: every module of the port imports, and
+import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, fontTools,
+safetensors and the JAX package all refused: every module of the port
+imports (the training package's synthetic renderers among them), and
 chip_smoke.py's phases run at a tiny size on the committed weights and
-forms, the hybrid engine's, the glue split's, field extraction's and the
+forms, the hybrid engine's, the glue split's, field extraction's, the
 service's (a scanned PDF uploaded to the port's app on a socket, through
-to its exports) among them."""
+to its exports) and training's (each trainer's steps on a cut of its
+committed batch, train_layout through the PIL-free form generator) among
+them."""
 
 import ast
 import os
@@ -14,7 +17,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ocr_system_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "orbax", "pydantic", "cv2", "PIL",
+BLOCKED = ("jax", "flax", "optax", "orbax", "pydantic", "cv2", "PIL", "fontTools",
            "safetensors", "ocr_system_tpu")
 
 SCRIPT = r'''
@@ -126,6 +129,14 @@ assert svc["tiers_agree"] == {"embedded_pages": 2, "render": "no PIL"}, svc
 assert svc["fields_equal"] and svc["json_equal"] and svc["csv_equal"] and svc["health"] == 200, svc
 assert svc["fields_expected"] > 0 and svc["pages"] == 2, svc
 assert set(svc["stage_ms"]) >= {"ocr_ms", "llm_extraction_ms", "save_ms", "validation_ms"}, svc
+# training: each trainer's steps on the first sample of its committed batch
+# (the full models), and train_layout end to end at 64 x 2
+want = smoke.train_expected()
+for name in smoke.TRAIN_NAMES:
+    tr = cs.phase_train(name, "float32", "cpu", want, None, n=1)
+    assert len(tr["loss"]) == 3 and tr["host_step_ms"] > 0 and "deviation" not in tr, tr
+cli = cs.phase_train_layout_cli("cpu", steps=2, batch_size=2, max_len=64, dim=64, depth=2)
+assert cli["host_steps_per_s"] > 0 and np.isfinite(cli["loss_last"]), cli
 print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"],
       e2e["launches"], svc["launches"])
 ''' % (BLOCKED,)
@@ -143,10 +154,17 @@ def test_port_runs_without_the_jax_stack():
 
 # the sanctioned lazy imports: image decoding and the PDF renderer's canvas
 # need PIL, the serving path does not (the subprocess test above runs the
-# path, a scanned PDF upload included, without it)
+# path, a scanned PDF upload included, without it); the synthetic line and
+# page renderers of training need PIL, and reading or building a font
+# needs fontTools, the layout trainer's form generator neither
 ALLOWED = {("ocr_system_tpu_torch/engine/preprocess.py", "decode_image", "PIL")} | {
     ("ocr_system_tpu_torch/engine/pdf.py", method, "PIL")
     for method in ("__init__", "_pil_font", "_decode_image_xobject", "_paste_image", "finish")} | {
+    ("ocr_system_tpu_torch/training/synth.py", method, "PIL")
+    for method in ("_font", "render_line", "render_page")} | {
+    ("ocr_system_tpu_torch/training/synth_forms.py", "render_spec", "PIL"),
+    ("ocr_system_tpu_torch/training/synth.py", "font_codepoints", "fontTools"),
+    ("ocr_system_tpu_torch/training/devanagari_font.py", "build_font", "fontTools"),
     ("chip_smoke.py", "pil_version", "PIL")}  # the service phase reports whether PIL imports
 
 

@@ -64,10 +64,21 @@ as it is and with every operation rounded. Each phase prints its step ms
 (CUDA events, steps 2-3) and peak memory. Then ``train_layout`` runs 20
 steps at 512 x 8, batch 32, bf16, end to end through its own PIL-free form
 generator, and prints its losses, then steps/s over 20 more steps and the
-device's idle share over 20 more under the profiler. (The rec trainer's own iterator renders
-lines with PIL and the DejaVu fonts, which the card machine lacks; the
-det trainer's renders 64 pages, about a minute, before its first step.
-Neither runs here; their steps are held above on the committed batches.)
+device's idle share over 20 more under the profiler; the rec and det
+trainers the same way at the CLI batch on their own rendering iterators
+(the fonts come with the package). Before training: the renderer's fonts
+and PIL's text layout on this machine; the served hybrid engine at
+float32 on 4 committed forms at each other detector setting (page wire 2
+and 8 bits, prob wire 1, 4 and 8 bits, contrast off, adaptive
+binarization on), held against the JAX engine's words
+(``assets/eval_expected.json``), enhance launching exactly where the JAX
+detector runs its Pallas kernel; and the quality evaluation
+(training/evaluate.py: recognizer, end to end with the hybrid, classical
+and Hindi rows, form and field extraction, forms through the engine,
+signatures) at float32 and bf16 on the lines and pages the JAX package
+drew (``assets/eval_renders.npz``, replayed), each item and score held
+against the JAX record at float32 and reported at bf16, with the share of
+each phase spent in edit distances.
 
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
@@ -1160,6 +1171,264 @@ def phase_train_layout_cli(device, steps: int = 20, batch_size: int = 32, max_le
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": smi}
 
 
+def phase_train_cli(name: str, device, steps: int = 10, batch: int | None = None,
+                    size: int | None = None, smi: str = "") -> dict:
+    """The rec or det trainer at the train_models CLI's batch (rec: 64
+    lines at W 320; det: 8 pages at 640) at bf16 from a from-scratch init,
+    on its own rendering iterator (the fonts come with the package): its
+    first and last losses over ``steps`` steps; on the card then ``steps``
+    more unprofiled (steps/s, warm) and ``steps`` more under a CUDA-only
+    profile (the device's idle share), as ``phase_train_layout_cli``. The
+    det iterator's pool is the batch (8 pages, rendered before the first
+    step; the CLI keeps 64), refreshed by its two workers."""
+    import torch
+
+    from ocr_system_tpu_torch.core.dtypes import DTypePolicy
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.training import train as T
+
+    device = torch.device(device)
+    policy = DTypePolicy(compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED)
+    if name == "rec":
+        from ocr_system_tpu_torch.models.recognizer import SVTRRecognizer
+
+        charset, batch, size = get_charset("latin"), batch or 64, size or 320
+        state = T.init_state(SVTRRecognizer(vocab_size=charset.size, policy=policy), 1e-3,
+                             device, gen)
+        step = T.make_rec_train_step()
+        it = T.rec_batch_iterator(charset, batch, width=size, seed=SEED)
+        shape = [batch, 48, size]
+    else:
+        from ocr_system_tpu_torch.models.dbnet import DBNet
+
+        batch, size = batch or 8, size or 640
+        state = T.init_state(DBNet(policy=policy, thresh_head=True), 1e-3, device, gen)
+        step = T.make_det_train_step()
+        it = T.det_batch_iterator(batch, size=size, seed=SEED, pool_size=batch)
+        shape = [batch, size, size]
+    cuda = device.type == "cuda"
+    row = {"phase": f"train_{name}_cli", "model": {"rec": "SVTR 192 x 6, Latin",
+                                                  "det": "DBNet, neck 96"}[name] + ", bf16",
+           "steps": steps, "batch": shape}
+
+    def timed():
+        t0 = time.perf_counter()
+        seen = T._run(name, state, step, it, steps, 0)
+        if cuda:
+            torch.cuda.synchronize()
+        return [v.item() for v in seen["loss"]], (time.perf_counter() - t0) * 1e3
+
+    try:
+        t = time.perf_counter()
+        first = next(it)  # the iterator's set-up: its pool rendered
+        row["iterator_setup_s"] = time.perf_counter() - t
+        it = _prepend(first, it)
+        losses, first_ms = timed()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train_{name}_cli: non-finite losses {losses}")
+        row.update(loss_first=losses[0], loss_last=losses[-1])
+        if not cuda:
+            return {**row, "host_steps_per_s": steps / first_ms * 1e3}
+        from ocr_system_tpu_torch.utils.profile_wave import device_busy_ms
+
+        _, warm_ms = timed()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, prof_ms = timed()
+    finally:
+        if hasattr(it, "close"):
+            it.close()  # stops the det iterator's page workers
+    busy = device_busy_ms(prof)
+    return {**row, "first_run_steps_per_s": steps / first_ms * 1e3,
+            "steps_per_s": steps / warm_ms * 1e3, "warm_wall_ms": warm_ms,
+            "profiled_wall_ms": prof_ms, "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1.0 - busy / prof_ms,
+            "nvidia_smi": smi}
+
+
+def _prepend(first, it):
+    """``first``, then the rest of ``it``; closing it closes ``it``."""
+    try:
+        yield first
+        yield from it
+    finally:
+        it.close()
+
+
+# ---- quality evaluation ----
+
+# the kernels each eval phase must launch on the card (every other kernel:
+# none): crop wherever a recognizer reads lines or pages, enhance wherever
+# DBNet detects at the default settings (the classical engine has no DBNet)
+EVAL_LAUNCHES = {
+    "eval_rec": ("crop",),
+    "eval_e2e_hybrid": ("enhance", "crop"),
+    "eval_e2e_classical": ("crop",),
+    "eval_e2e_hindi": ("enhance", "crop"),
+    "eval_extract": (),
+    "eval_forms_e2e": ("enhance", "crop"),
+    "eval_signatures": ("enhance", "crop"),
+}
+
+
+def launch_misses(launched: dict, want: tuple[str, ...], on_card: bool) -> list[str]:
+    """Kernels that launched where they must not, or did not where they
+    must (on the card only: on the CPU the wrappers count nothing)."""
+    if not on_card:
+        return []
+    return [f"{k} launched {v} times" for k, v in launched.items() if (v > 0) != (k in want)]
+
+
+def phase_fonts(want: dict) -> dict:
+    """The renderer's fonts on this machine: PIL, its FreeType and whether
+    its complex text layout (raqm) is there, whether fontTools is there (it
+    need not be), where each font came from, and whether the first
+    held-out Latin and Devanagari lines render the JAX record's pixels
+    (reported: without raqm PIL lays text out glyph by glyph, and the
+    eval phases replay the record's renders)."""
+    import importlib.util
+
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.training import synth
+    from ocr_system_tpu_torch.utils.smoke import pixels_digest
+
+    from PIL import __version__ as pil, features
+
+    fonts = synth.discover_fonts()
+    equal = {}
+    for cs in ("latin", "devanagari"):
+        line = synth.TextRenderer(get_charset(cs), seed=9999).render_line(
+            max_width=320, augment=False)
+        digest = pixels_digest((line.image * 255).astype(np.uint8))
+        equal[cs] = digest == want["phases"]["eval_rec"]["float32"][cs]["digests"][0]
+    row = {"phase": "fonts", "pil": pil, "freetype2": features.check("freetype2"),
+           "freetype_version": features.version("freetype2"),
+           "raqm": features.check("raqm"),
+           "fonttools": importlib.util.find_spec("fontTools") is not None,
+           "fonts": [os.path.relpath(f, REPO) if str(f).startswith(REPO) else str(f)
+                     for f in fonts],
+           "first_line_pixels_equal_record": equal}
+    missing = [str(f) for f in fonts if not os.path.isfile(f)]
+    if missing or not row["freetype2"]:
+        emit({**row, "failed": missing})
+        raise AssertionError(f"fonts: missing {missing} or no FreeType")
+    return row
+
+
+class CerClock:
+    """Times the evaluation's edit-distance work (``edit_distance``, which
+    ``cer`` calls, and ``infix_cer``) while it is entered."""
+
+    def __enter__(self):
+        from ocr_system_tpu_torch.training import evaluate as E
+
+        self.seconds = 0.0
+        self.saved = {k: getattr(E, k) for k in ("edit_distance", "infix_cer")}
+
+        def timed(fn):
+            def call(*args):
+                t = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    self.seconds += time.perf_counter() - t
+            return call
+
+        for k, fn in self.saved.items():
+            setattr(E, k, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from ocr_system_tpu_torch.training import evaluate as E
+
+        for k, fn in self.saved.items():
+            setattr(E, k, fn)
+
+
+def phase_eval(name: str, kits: dict, want: dict, renders: tuple | None = None,
+               sizes: dict | None = None) -> dict:
+    """One eval phase (utils/smoke.EVAL_PHASES) at each dtype of ``kits``
+    against the JAX record ``want`` (by dtype): float32 gated
+    (utils/smoke.compare_eval: the exact bar where every digest is the
+    record's, the quality bar where not), bf16 reported; the launches of
+    each run must be those of EVAL_LAUNCHES. With ``renders`` (the
+    record's render events of this phase and the arrays), the renderers
+    replay the lines and pages the JAX package drew instead of drawing
+    (utils/smoke.ReplayedRenders): this machine's PIL lays text out
+    otherwise (phase fonts). Prints the seconds of each run and the share
+    of them spent in edit distances."""
+    import contextlib
+
+    from ocr_system_tpu_torch.utils import smoke
+
+    row: dict = {"phase": name, "renders": "replayed" if renders else "drawn here"}
+    failed: list[str] = []
+    for dtype, kit in kits.items():
+        reset_counts()
+        t = time.perf_counter()
+        replay = smoke.ReplayedRenders(*renders) if renders else contextlib.nullcontext()
+        with CerClock() as clock, replay:
+            runs = smoke.run_eval(name, kit, **({"sizes": sizes} if sizes else {}))
+        sec = time.perf_counter() - t
+        launched = counts()
+        cmp = smoke.compare_eval(want[dtype], runs, gate=dtype == "float32")
+        on_card = kit["rec"]["latin"].device.type == "cuda"
+        misses = cmp["misses"] + launch_misses(launched, EVAL_LAUNCHES[name], on_card)
+        row[dtype] = {"s": sec, "cer_s": clock.seconds, "cer_share": clock.seconds / sec,
+                      "launches": launched, "runs": cmp["runs"], "misses": misses}
+        failed += [f"{dtype} {m}" for m in misses]
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError(f"{name}: " + "; ".join(failed))
+    return row
+
+
+def phase_det_settings(device, forms, base: dict, record: dict, smi: str = "") -> dict:
+    """The served hybrid engine at float32 on ``forms`` at each detector
+    setting of utils/smoke.DET_SETTINGS, against the JAX engine's record:
+    words matched (IoU >= 0.9, the same text) on at least the waves' 98%,
+    each page's word count equal; enhance must launch except where the JAX
+    detector runs no Pallas kernel (contrast off, binarization on), crop
+    always. Prints each setting's wave ms and launches."""
+    from ocr_system_tpu_torch.engine.preprocess import PageImage
+    from ocr_system_tpu_torch.utils import smoke
+
+    pages = [PageImage(np.ascontiguousarray(p), i + 1) for i, p in enumerate(forms)]
+    row: dict = {"phase": "det_settings", "pages": len(pages), "settings": {},
+                 "nvidia_smi": smi}
+    failed = []
+    for name, update in smoke.DET_SETTINGS.items():
+        engine = smoke.build_engine(device, **base, compute_dtype="float32", **update)
+        reset_counts()
+        t = time.perf_counter()
+        outs = engine.process_pages(pages)
+        ms = (time.perf_counter() - t) * 1e3
+        launched = counts()
+        check_outputs(outs, pages)
+        got = [smoke.det_settings_record(o) for o in outs]
+        per = [smoke.compare_to_expected(e, g) for e, g in zip(record[name], got, strict=True)]
+        n = sum(c["words"] for c in per)
+        matched = sum(c["matched"] for c in per)
+        counts_equal = [len(e["word"]) == len(g["word"]) for e, g in zip(record[name], got)]
+        want = ("crop",) if name in smoke.DET_SETTINGS_PLAIN else ("enhance", "crop")
+        on_card = engine.recognizer.device.type == "cuda"
+        misses = launch_misses(launched, want, on_card)
+        if matched < 0.98 * n:
+            misses.append(f"{matched} of {n} words matched, under 0.98")
+        if not all(counts_equal):
+            misses.append(f"word counts differ: {[len(g['word']) for g in got]} against "
+                          f"{[len(e['word']) for e in record[name]]}")
+        row["settings"][name] = {"update": update, "wave_ms": ms, "launches": launched,
+                                 "words_expected": n, "words_matched": matched,
+                                 "word_counts": [len(g["word"]) for g in got],
+                                 "stage_ms": dict(engine.stage_ms), "misses": misses}
+        failed += [f"{name}: {m}" for m in misses]
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError("det_settings: " + "; ".join(failed))
+    return row
+
+
 # Spinning the card before the timed launches lets the host queue them
 # all first, so the events time the kernels and not the host's launch
 # overhead (a 15 us kernel is shorter than one Python wrapper call).
@@ -1528,6 +1797,23 @@ def main() -> int:
     emit(phase_host_ops(forms[1]))
     del hybrid
 
+    # ---- phase 8b: the fonts the renderer reads (the package's), then the
+    # detector settings and the quality evaluation against the JAX record ----
+    want_eval = smoke.eval_expected()
+    emit(phase_fonts(want_eval))
+    t = time.perf_counter()
+    emit({**phase_det_settings(dev, forms[:smoke.DET_SETTINGS_FORMS], expected["settings"],
+                               want_eval["det_settings"], smi=smi),
+          "elapsed_s": time.perf_counter() - t})
+    kits = {dtype: smoke.eval_kit(dev, dtype) for dtype in ("float32", "bfloat16")}
+    arrays = smoke.eval_renders()
+    for name in smoke.EVAL_PHASES:
+        t = time.perf_counter()
+        emit({**phase_eval(name, kits, want_eval["phases"][name],
+                           renders=(want_eval["renders"][name], arrays)),
+              "elapsed_s": time.perf_counter() - t})
+    del kits
+
     # ---- phase 9: training: 3 steps of each trainer on its committed
     # batch from the trained weights, against the JAX record (float32
     # within its bar, bf16 reported), then train_layout end to end ----
@@ -1544,6 +1830,9 @@ def main() -> int:
                       "elapsed_s": time.perf_counter() - t})
     t = time.perf_counter()
     emit({**phase_train_layout_cli(dev, smi=smi), "elapsed_s": time.perf_counter() - t})
+    for name in ("rec", "det"):
+        t = time.perf_counter()
+        emit({**phase_train_cli(name, dev, smi=smi), "elapsed_s": time.perf_counter() - t})
 
     sources = {
         "enhance": "ocr_system_tpu/kernels/preprocess_pallas.py:117",

@@ -2,7 +2,7 @@
 """Carry the trained weights and a set of real forms over to the PyTorch
 port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
-    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train]
+    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train|eval]
 
 Writes, in ocr_system_tpu_torch/:
 
@@ -76,6 +76,23 @@ Writes, in ocr_system_tpu_torch/:
   3 the norm of each top-level parameter group and, for rec and det, the
   running statistics of the first and last BatchNorm (jax_train_record).
   ``--only train`` writes just these three.
+
+- assets/eval_expected.json: the JAX package's quality evaluation
+  (ocr_system_tpu/training/evaluate.py) at float32 and at bfloat16 on the
+  checkpoints (the extractor's bf16-rounded, as above), run through
+  utils/smoke.run_eval for every phase of utils/smoke.EVAL_PHASES at
+  utils/smoke.EVAL_SIZES (the engines as training/sweep_quality.py builds
+  them): each run's result, every item's output (a line's text, a page's
+  markdown and handwriting boxes, a document's form type and fields) and a
+  digest of every rendered line and page; and the JAX hybrid engine's words
+  and boxes at float32 at each detector setting of
+  utils/smoke.DET_SETTINGS on the first DET_SETTINGS_FORMS Latin forms;
+  and every line and page the JAX renderers drew for those evaluations,
+  with the texts, quads and element boxes measured from them
+  (utils/smoke.RenderLog), which chip_smoke.py replays on the card:
+  the events in eval_expected.json, the images and quads in
+  assets/eval_renders.npz. ``--only eval`` writes just these two
+  (~10 min).
 
 chip_smoke.py loads all of them and holds the port against the JAX
 package on the card. This tool imports JAX, so it stays outside the
@@ -622,8 +639,100 @@ def export_train() -> list[Path]:
     return [thresh, save_train_batches(batches), TRAIN_EXPECTED]
 
 
+def jax_eval_kit(dtype: str) -> dict:
+    """The JAX package's side of utils/smoke.run_eval at ``dtype``: its
+    evaluation module, charsets, recognizers, the hybrid and classical
+    engines as its scripts/sweep_quality.py builds them, the layout
+    extractor on the bf16-rounded checkpoint and the rule extractor."""
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.engine.classical_detector import ClassicalDetector
+    from ocr_system_tpu.engine.hybrid_detector import HybridDetector
+    from ocr_system_tpu.engine.pipeline import JaxOCREngine
+    from ocr_system_tpu.engine.recognizer import Recognizer
+    from ocr_system_tpu.extract.layout_model import LayoutModelExtractor
+    from ocr_system_tpu.extract.rules import RuleExtractor
+    from ocr_system_tpu.models.charsets import get_charset
+    from ocr_system_tpu.training import evaluate
+    from ocr_system_tpu.training.synth_forms_heldout import HeldoutFormGenerator
+    from ocr_system_tpu_torch.utils.smoke import EVAL_ENGINE
+
+    ck = lambda name: str(REPO / "checkpoints" / name)  # noqa: E731
+    charsets = {cs: get_charset(cs) for cs in ("latin", "devanagari")}
+    rec = {cs: Recognizer(JaxSettings(rec_checkpoint=ck(f"rec_{cs}"), storage_root="storage",
+                                      compute_dtype=dtype), charset=charsets[cs])
+           for cs in charsets}
+    st = JaxSettings(rec_checkpoint=ck("rec_latin"), rec_checkpoint_devanagari=ck("rec_devanagari"),
+                     det_checkpoint=ck("det"), storage_root="storage", compute_dtype=dtype,
+                     **EVAL_ENGINE)
+    engines = {name: JaxOCREngine(st, detector=det(st),
+                                  recognizer=Recognizer(st, charset=charsets["latin"]))
+               for name, det in (("hybrid", HybridDetector), ("classical", ClassicalDetector))}
+    ex_settings = JaxSettings(extract_checkpoint=ck("extract"), compute_dtype=dtype)
+    extractor = LayoutModelExtractor(ex_settings)
+    extractor.variables = rounded_bf16(extractor.variables)
+    return {"E": evaluate, "heldout": HeldoutFormGenerator, "charsets": charsets, "rec": rec,
+            "engines": engines, "extractor": extractor, "rules": RuleExtractor()}
+
+
+def export_eval() -> list[Path]:
+    """assets/eval_expected.json (module doc)."""
+    import time
+
+    import jax
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.core.mesh import build_mesh, mesh_context
+    from ocr_system_tpu.engine.pipeline import _build_engine
+    from ocr_system_tpu.engine.preprocess import PageImage
+    from ocr_system_tpu.training import synth as JS
+    from ocr_system_tpu.training import synth_forms as JSF
+    from ocr_system_tpu.training.devanagari_font import ensure_font
+    from ocr_system_tpu_torch.utils import smoke
+
+    # the JAX renderer lists its Devanagari font only once it exists, as
+    # the port always lists its own
+    ensure_font()
+    record: dict = {"jax": jax.__version__, "sizes": smoke.EVAL_SIZES,
+                    "engine": {k: list(v) if isinstance(v, tuple) else v
+                               for k, v in smoke.EVAL_ENGINE.items()},
+                    "phases": {name: {} for name in smoke.EVAL_PHASES}, "det_settings": {}}
+    ckpt = dict(det_checkpoint=str(REPO / "checkpoints/det"),
+                rec_checkpoint=str(REPO / "checkpoints/rec_latin"),
+                rec_checkpoint_devanagari=str(REPO / "checkpoints/rec_devanagari"))
+    forms, _ = smoke.smoke_forms()
+    pages = [PageImage(p, i + 1) for i, p in enumerate(forms[:smoke.DET_SETTINGS_FORMS])]
+    with mesh_context(build_mesh("dp=1")):
+        for name, update in smoke.DET_SETTINGS.items():
+            t = time.perf_counter()
+            engine = _build_engine("hybrid", JaxSettings(**SMOKE_SETTINGS, **ckpt,
+                                                         compute_dtype="float32", **update))
+            record["det_settings"][name] = [smoke.det_settings_record(o)
+                                            for o in engine.process_pages(pages)]
+            print(f"det_settings {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        logs: dict[str, list[dict]] = {}
+        for dt in DTYPES:
+            kit = jax_eval_kit(dt)
+            for name in smoke.EVAL_PHASES:
+                t = time.perf_counter()
+                with smoke.RenderLog(JS, JSF) as log:
+                    runs = smoke.run_eval(name, kit)
+                # both dtypes draw the same lines and pages
+                digests = [smoke.pixels_digest(ev["image"]) for ev in log.events]
+                if name in logs and digests != [smoke.pixels_digest(ev["image"])
+                                                for ev in logs[name]]:
+                    raise SystemExit(f"{name}: the JAX renders differ between dtypes")
+                logs.setdefault(name, log.events)
+                record["phases"][name][dt] = runs
+                print(f"{name} {dt}: {time.perf_counter() - t:.1f} s",
+                      {run: r["result"] for run, r in runs.items()}, flush=True)
+    record["renders"], arrays = smoke.save_renders(logs)
+    np.savez_compressed(smoke.EVAL_RENDERS, **arrays)
+    smoke.EVAL_EXPECTED.write_text(json.dumps(record, ensure_ascii=False) + "\n")
+    return [smoke.EVAL_EXPECTED, smoke.EVAL_RENDERS]
+
+
 def main() -> int:
-    only = {"service": export_service, "train": export_train}
+    only = {"service": export_service, "train": export_train, "eval": export_eval}
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] and sys.argv[2] in only:
         for path in only[sys.argv[2]]():
             print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
@@ -678,8 +787,10 @@ def main() -> int:
     extract = export_extract()
     service = export_service()
     train = export_train()
+    evaluation = export_eval()
     for path in (*written, ASSETS / "smoke_forms.npz", ASSETS / "hindi_forms.npz",
-                 ASSETS / "smoke_forms_expected.json", *glued, *extract, *service, *train):
+                 ASSETS / "smoke_forms_expected.json", *glued, *extract, *service, *train,
+                 *evaluation):
         print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
     for key in waves:
         for dt in DTYPES:

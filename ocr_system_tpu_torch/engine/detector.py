@@ -1,16 +1,22 @@
 """Detection stage: batched DBNet inference with shape bucketing (port of
-ocr_system_tpu/engine/detector.py, ``det_prob_wire_bits=0``).
+ocr_system_tpu/engine/detector.py).
 
 Pages are letterboxed on the host into square gray uint8 canvases of a few
-static sizes (``det_image_buckets``); two 16-level pixels travel per byte
-(``det_wire_bits=4``, the only value ported) and are unpacked on the
-device. On the device, per bucket batch: skew estimate (FFT), the enhance
-kernel (contrast enhancement on, the only mode ported), DBNet, a stride-2
-average pool and the component statistics; only the (B, K, 13) stats and
-the skew angles come back to the host. Pages whose skew lies in
+static sizes (``det_image_buckets``) and travel packed to ``det_wire_bits``
+per pixel (8; 4: two 16-level pixels per byte, the default; 2: four 4-level
+pixels per byte), unpacked on the device. On the device, per bucket batch:
+skew estimate (FFT), enhancement, DBNet and a stride-2 average pool. With
+contrast enhancement on and adaptive binarization off (the default) the
+enhance kernel serves; otherwise the JAX detector composes contrast,
+sharpness, binarization and normalisation in plain ops, and so does the
+port. What comes back to the host follows ``det_prob_wire_bits``: 0 (the
+default) the (B, K, 13) component statistics, with a 16-level map kept on
+the device for the component-overflow fallback; 1 a bitpacked binarized
+map and a stride-4 pooled 16-level score map; 4 the 16-level map, two
+pixels per byte; 8 the map in uint8. Pages whose skew lies in
 [MIN_DESKEW_DEG, MAX_DESKEW_DEG] are rotated on the host and the batch runs
-again. The gray canvases stay on the device for the recognizer
-(``DetResult.canvas_stack``).
+again in the same mode. The gray canvases stay on the device for the
+recognizer (``DetResult.canvas_stack``).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ocr_system_tpu_torch.engine.host_image import (
     rotate_cubic,
 )
 from ocr_system_tpu_torch.engine.selection_marks import page_components
-from ocr_system_tpu_torch.kernels.enhance import enhance_gray, gray_means, to_unit
+from ocr_system_tpu_torch.kernels.enhance import CONTRAST, SHARPNESS, enhance_gray, gray_means, to_unit
 from ocr_system_tpu_torch.models.dbnet import DBNet
 from ocr_system_tpu_torch.ops import image_ops
 from ocr_system_tpu_torch.ops.boxes import (
@@ -41,9 +47,12 @@ from ocr_system_tpu_torch.ops.boxes import (
 from ocr_system_tpu_torch.ops.device_boxes import component_stats
 from ocr_system_tpu_torch.ops.sampling import quads_are_axis_aligned
 
-PROB_STRIDE = 2  # prob map downsample before the component statistics
+PROB_STRIDE = 2  # prob map downsample before the host transfer
+SCORE_STRIDE = 4  # the pooled score map's stride (det_prob_wire_bits=1)
 MIN_DESKEW_DEG = 0.5
 MAX_DESKEW_DEG = 45.0
+WIRE_BITS = (2, 4, 8)
+PROB_WIRE_BITS = (0, 1, 4, 8)
 
 
 @dataclass
@@ -51,6 +60,10 @@ class DetResult:
     boxes: list[DetectedBox]  # quads in FINAL page pixel coords
     skew_angle: float
     page: np.ndarray  # deskewed page (crops/overlay source)
+    # the stride-2 map the boxes came from, in model coordinates: float in
+    # [0, 1] under det_prob_wire_bits 4 and 8, the binarized map under 1,
+    # None under 0 (only statistics come back)
+    prob_map: np.ndarray | None = None
     # device-canvas handoff to the rec stage (skips a second page upload)
     canvas_stack: torch.Tensor | None = None  # (B, S, S) uint8 gray, on device
     canvas_row: int = -1  # this page's row in canvas_stack
@@ -72,47 +85,79 @@ class Detector:
     def __init__(self, settings: Settings | None = None, state_dict=None,
                  seed: int = 0, device: str | torch.device | None = None):
         self.settings = s = settings or get_settings()
-        if s.det_prob_wire_bits != 0:
-            raise ValueError("the torch port runs det_prob_wire_bits=0 only")
-        if s.enable_adaptive_binarization:
-            raise ValueError("adaptive binarization is not ported yet")
-        if s.det_wire_bits != 4:
-            raise ValueError("the torch port runs det_wire_bits=4 only")
-        if not s.enable_contrast_enhancement:
-            raise ValueError("the torch port runs with contrast enhancement on only")
+        if s.det_wire_bits not in WIRE_BITS:
+            raise ValueError(f"det_wire_bits={s.det_wire_bits}: the port runs {WIRE_BITS}")
+        if s.det_prob_wire_bits not in PROB_WIRE_BITS:
+            raise ValueError(
+                f"det_prob_wire_bits={s.det_prob_wire_bits}: the port runs {PROB_WIRE_BITS}")
+        # the enhance kernel runs exactly where the JAX detector runs its
+        # Pallas kernel (ocr_system_tpu/engine/detector.py, use_pallas)
+        self.use_kernel = s.enable_contrast_enhancement and not s.enable_adaptive_binarization
         self.device = resolve_device(device)
         policy = DTypePolicy.from_names(s.compute_dtype, s.param_dtype)
         self.model = DBNet(policy=policy)
         load_weights(self.model, s.det_checkpoint, state_dict, seed)
         self.model.to(self.device).eval()
 
-    @torch.inference_mode()
-    def _forward(self, packed: np.ndarray):
-        """Host wire batch -> device (stats, n_comps, 4-bit prob levels,
-        skew angles, gray canvases)."""
+    def _preprocess(self, f: torch.Tensor) -> torch.Tensor:
+        """(H, W) float32 page in [0, 1] -> (3, H, W) float32 model input,
+        the JAX detector's plain composition."""
         s = self.settings
-        x = torch.from_numpy(packed).to(self.device)
-        b, side = x.shape[0], x.shape[1]
-        gray_u8 = torch.stack([x >> 4, x & 15], dim=-1).reshape(b, side, side) * 17
+        img = f
+        if s.enable_contrast_enhancement:
+            img = image_ops.enhance_contrast(img, CONTRAST)
+            img = image_ops.enhance_sharpness(img, SHARPNESS)
+        if s.enable_adaptive_binarization:
+            img = image_ops.adaptive_binarize(img)
+        return image_ops.normalize_for_model(img).permute(2, 0, 1)
+
+    @torch.inference_mode()
+    def _forward(self, packed: np.ndarray) -> dict[str, torch.Tensor]:
+        """Host wire batch -> the device outputs of det_prob_wire_bits
+        (module doc): "angles" and "canvas" (the gray u8 canvases) always;
+        "stats", "n_comps" and the packed 16-level "prob" under 0; the
+        bitpacked "prob" and packed "score" under 1; the packed "prob"
+        under 4; the u8 "prob" under 8."""
+        s = self.settings
+        gray_u8 = unpack_wire(torch.from_numpy(packed).to(self.device), s.det_wire_bits)
         f = to_unit(gray_u8)
         if s.enable_deskew:
             angles = image_ops.estimate_skew_angle(f)
         else:
-            angles = torch.zeros(b, device=self.device)
-        # the kernel reads the u8 canvas and writes the compute dtype
-        x_in = enhance_gray(gray_u8, gray_means(gray_u8), self.model.policy.compute_dtype)
+            angles = torch.zeros(f.shape[0], device=self.device)
+        if self.use_kernel:
+            # the kernel reads the u8 canvas and writes the compute dtype
+            x_in = enhance_gray(gray_u8, gray_means(gray_u8), self.model.policy.compute_dtype)
+        else:
+            # contrast off or binarization on: the JAX detector composes the
+            # steps in plain ops and runs no Pallas kernel, so the port runs
+            # no kernel here either
+            x_in = torch.stack([self._preprocess(img) for img in f])
         prob = self.model.forward_nchw(x_in)
         prob_ds = F.avg_pool2d(prob[:, None], PROB_STRIDE)[:, 0]
-        k_top = min(s.det_stats_k, s.max_boxes_per_page)
-        stats, n_comps = component_stats(prob_ds, s.det_bin_thresh, k_top)
-        # 16-level map kept on the device for the component-overflow
-        # fallback, quantized as the reference's 4-bit wire map is
-        p4 = (prob_ds * 15.0 + 0.5).to(torch.uint8)
-        return stats, n_comps, p4, angles, gray_u8
+        out = {"angles": angles, "canvas": gray_u8}
+        mode = s.det_prob_wire_bits
+        if mode == 0:
+            k_top = min(s.det_stats_k, s.max_boxes_per_page)
+            out["stats"], out["n_comps"] = component_stats(prob_ds, s.det_bin_thresh, k_top)
+            out["prob"] = pack_levels4(prob_ds)
+        elif mode == 1:
+            bits = (prob_ds > s.det_bin_thresh).to(torch.uint8)
+            b, h, w = bits.shape
+            weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                                   device=bits.device)
+            out["prob"] = (bits.view(b, h, w // 8, 8) * weights).sum(-1).to(torch.uint8)
+            out["score"] = pack_levels4(F.avg_pool2d(prob_ds[:, None], SCORE_STRIDE)[:, 0])
+        elif mode == 4:
+            out["prob"] = pack_levels4(prob_ds)
+        else:
+            out["prob"] = (prob_ds * 255.0 + 0.5).to(torch.uint8)
+        return out
 
     def detect_batch(self, pages: list[np.ndarray]) -> list[DetResult]:
         """pages: list of (H, W, 3) uint8 arrays (original sizes)."""
         s = self.settings
+        mode = s.det_prob_wire_bits
         pages = list(pages)
         by_bucket: dict[int, list[int]] = {}
         canvases: dict[int, np.ndarray] = {}
@@ -125,8 +170,8 @@ class Detector:
         results: dict[int, DetResult] = {}
         for bucket, idxs in by_bucket.items():
             batch = np.stack([canvases[i] for i in idxs])
-            stats, n_comps, p4, angles, canvas_dev = self._forward(self._pack_wire(batch))
-            angles = angles.cpu().numpy()
+            out = self._forward(self._pack_wire(batch))
+            angles = out["angles"].cpu().numpy()
             # host deskew + a single re-pass for pages that need it
             skewed = [
                 j for j in range(len(idxs))
@@ -140,9 +185,22 @@ class Detector:
                     canvases[i], scales[i] = _letterbox_host(pages[i], bucket)
                     applied[j] = float(angles[j])
                 batch = np.stack([canvases[i] for i in idxs])
-                stats, n_comps, p4, _, canvas_dev = self._forward(self._pack_wire(batch))
-            stats_np = stats.cpu().numpy()
-            n_comps_np = n_comps.cpu().numpy()
+                out = self._forward(self._pack_wire(batch))
+            if mode == 0:
+                stats_np = out["stats"].cpu().numpy()
+                n_comps_np = out["n_comps"].cpu().numpy()
+            else:
+                prob = out["prob"].cpu().numpy()
+                score = None
+                if mode == 1:
+                    # bits -> the binary geometry mask; the score map ->
+                    # stride-4 floats for the component mean-score gate
+                    score = unpack_levels4(out["score"].cpu().numpy())
+                    prob = np.unpackbits(prob, axis=2)
+                elif mode == 4:
+                    prob = unpack_levels4(prob)
+                else:
+                    prob = prob.astype(np.float32) / 255.0
             for j, i in enumerate(idxs):
                 scale = scales[i]
                 h, w = pages[i].shape[:2]
@@ -153,19 +211,30 @@ class Detector:
                     clip_wh=(w, h),
                     max_boxes=s.max_boxes_per_page,
                 )
-                boxes = boxes_from_stats(stats_np[j], int(n_comps_np[j]), **kw)
-                if boxes is None:
-                    # component overflow past K: exact host path over this
-                    # page's 16-level map
-                    page_prob = p4[j].cpu().numpy().astype(np.float32) / 15.0
+                prob_map = None
+                if mode == 0:
+                    boxes = boxes_from_stats(stats_np[j], int(n_comps_np[j]), **kw)
+                    if boxes is None:
+                        # component overflow past K: exact host path over
+                        # this page's 16-level map
+                        page_prob = unpack_levels4(out["prob"][j:j + 1].cpu().numpy())[0]
+                        boxes = boxes_from_prob_map(
+                            page_prob, bin_thresh=s.det_bin_thresh, **kw
+                        )
+                elif mode == 1:
+                    prob_map = prob[j]
                     boxes = boxes_from_prob_map(
-                        page_prob, bin_thresh=s.det_bin_thresh, **kw
+                        binary=prob_map.astype(np.uint8), score_map=score[j],
+                        score_stride=SCORE_STRIDE, bin_thresh=s.det_bin_thresh, **kw,
                     )
-                self._ink_and_emit(results, boxes, pages, i, j, scale,
-                                   canvas_dev, float(applied[j]))
+                else:
+                    prob_map = prob[j]
+                    boxes = boxes_from_prob_map(prob_map, bin_thresh=s.det_bin_thresh, **kw)
+                self._ink_and_emit(results, boxes, pages, i, j, scale, prob_map,
+                                   out["canvas"], float(applied[j]))
         return [results[i] for i in range(len(pages))]
 
-    def _ink_and_emit(self, results, boxes, pages, i, j, scale, canvas_dev,
+    def _ink_and_emit(self, results, boxes, pages, i, j, scale, prob_map, canvas_dev,
                       applied_angle) -> None:
         """Per-page tail: ink snap/expand, batch quad pad, the page's ink
         components for the mark and handwriting passes, DetResult."""
@@ -192,6 +261,7 @@ class Detector:
             boxes=boxes,
             skew_angle=applied_angle,
             page=pages[i],
+            prob_map=prob_map,
             canvas_stack=canvas_dev,
             canvas_row=j,
             canvas_scale=scale,
@@ -200,10 +270,49 @@ class Detector:
         )
 
     def _pack_wire(self, batch: np.ndarray) -> np.ndarray:
-        """Pack two 16-level pixels per byte along W (det_wire_bits=4);
-        unpacked on the device."""
-        g4 = batch >> 4
-        return (g4[:, :, 0::2] << 4 | g4[:, :, 1::2]).astype(np.uint8)
+        """Pack the (B, S, S) u8 canvases along W to det_wire_bits: two
+        16-level pixels per byte (4), four 4-level pixels per byte (2), or
+        as they are (8); unpacked on the device (``unpack_wire``)."""
+        bits = self.settings.det_wire_bits
+        if bits == 4:
+            g4 = batch >> 4
+            return (g4[:, :, 0::2] << 4 | g4[:, :, 1::2]).astype(np.uint8)
+        if bits == 2:
+            # round to the nearest of 4 levels (floor costs ~0.5 level of
+            # error on antialiased glyph edges — measurable at 12px fonts)
+            g2 = (batch.astype(np.uint16) * 3 + 127) // 255
+            return (
+                g2[:, :, 0::4] << 6 | g2[:, :, 1::4] << 4
+                | g2[:, :, 2::4] << 2 | g2[:, :, 3::4]
+            ).astype(np.uint8)
+        return batch
+
+
+def unpack_wire(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """(B, S, S * bits / 8) packed u8 -> (B, S, S) u8 gray, each level
+    scaled back to 0..255 (x 17 for 16 levels, x 85 for 4)."""
+    b, side = x.shape[0], x.shape[1]
+    if bits == 4:
+        return torch.stack([x >> 4, x & 15], dim=-1).reshape(b, side, side) * 17
+    if bits == 2:
+        parts = [(x >> sh) & 3 for sh in (6, 4, 2, 0)]
+        return torch.stack(parts, dim=-1).reshape(b, side, side) * 85
+    return x
+
+
+def pack_levels4(p: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) float in [0, 1] -> (B, H, W / 2) u8: 16 levels rounded to
+    nearest, two pixels per byte, the left one in the high nibble."""
+    q = (p * 15.0 + 0.5).to(torch.uint8)
+    return q[:, :, 0::2] << 4 | q[:, :, 1::2]
+
+
+def unpack_levels4(p: np.ndarray) -> np.ndarray:
+    """Host side of ``pack_levels4``: (B, H, W / 2) u8 -> (B, H, W)
+    float32 in [0, 1]."""
+    hi = (p >> 4).astype(np.float32)
+    lo = (p & 15).astype(np.float32)
+    return np.stack([hi, lo], axis=-1).reshape(p.shape[0], p.shape[1], -1) / 15.0
 
 
 def _ink_snap(

@@ -101,6 +101,7 @@ class HybridDetector:
                 boxes=boxes,
                 skew_angle=nd.skew_angle,
                 page=nd.page,
+                prob_map=nd.prob_map,
                 canvas_stack=nd.canvas_stack,
                 canvas_row=nd.canvas_row,
                 canvas_scale=nd.canvas_scale,

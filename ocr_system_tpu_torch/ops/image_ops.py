@@ -1,5 +1,5 @@
-"""Page enhancement and skew estimation as tensor ops (port of the det-path
-half of ocr_system_tpu/ops/image_ops.py).
+"""Page enhancement, adaptive binarization and skew estimation as tensor
+ops (port of the det-path half of ocr_system_tpu/ops/image_ops.py).
 
 Images are float32 in [0, 1]: (H, W) gray or (H, W, 3) RGB, as in the JAX
 module. ``estimate_skew_angle`` takes a batch (B, H, W) of gray pages and
@@ -47,6 +47,15 @@ def blur_planes(planes: torch.Tensor, sigma: float = 1.0, radius: int = 2) -> to
     return blur.reshape(planes.shape)
 
 
+def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of (H, W) (or of the last two axes), edge
+    replicated (cv2's BORDER_REPLICATE); the radius defaults to
+    round(3 sigma), at least 1."""
+    if radius is None:
+        radius = max(int(3.0 * sigma + 0.5), 1)
+    return blur_planes(img, sigma, radius)
+
+
 def enhance_contrast(img: torch.Tensor, factor: float = 1.2) -> torch.Tensor:
     """PIL ImageEnhance.Contrast semantics: blend with the mean-gray image."""
     mean = to_grayscale(img).mean()
@@ -60,6 +69,19 @@ def enhance_sharpness(img: torch.Tensor, factor: float = 1.1) -> torch.Tensor:
     else:
         blurred = blur_planes(img.permute(2, 0, 1)).permute(1, 2, 0)
     return torch.clamp(blurred + (img - blurred) * factor, 0.0, 1.0)
+
+
+def adaptive_binarize(img: torch.Tensor, block_size: int = 11,
+                      c: float = 2.0 / 255.0) -> torch.Tensor:
+    """Gaussian adaptive threshold, as cv2.adaptiveThreshold(
+    ADAPTIVE_THRESH_GAUSSIAN_C, blockSize=11, C=2): a pixel is 1 where it is
+    brighter than its local Gaussian mean less C, else 0. The sigma follows
+    cv2's rule for a kernel size, 0.3 ((k - 1) / 2 - 1) + 0.8."""
+    g = to_grayscale(img)
+    radius = block_size // 2
+    sigma = 0.3 * ((block_size - 1) * 0.5 - 1) + 0.8
+    local_mean = gaussian_blur(g, sigma, radius)
+    return (g > local_mean - c).to(g.dtype)
 
 
 def normalize_for_model(

@@ -1,7 +1,9 @@
 """Synthetic Devanagari TTF generator (a copy of
 ocr_system_tpu/training/devanagari_font.py; fontTools is imported in
 ``build_font`` only, and ``ensure_font`` builds into the same gitignored
-``assets/fonts/``).
+``assets/fonts/``). The port's renderers read the build committed in the
+package, ``ocr_system_tpu_torch/assets/fonts/OCRSynthDevanagari.ttf``
+(training/synth.DEVANAGARI_FONT), so they need no fontTools.
 
 The deployment image ships only DejaVu (no Devanagari coverage) and the
 build environment has no network egress, so the Hindi recognition pipeline

@@ -1,10 +1,16 @@
 """Synthetic training data: rendered text lines and form pages (a copy of
 ocr_system_tpu/training/synth.py; its output equals the JAX package's byte
-for byte at a seed, wherever the same PIL and fonts are present).
+for byte at a seed, wherever the same PIL, with the same text layout, and
+fonts are present: PIL without raqm lays text out glyph by glyph, which
+moves Devanagari matras and Latin advances).
 
 PIL is imported where a line or page is drawn, not with the module, so the
-rest of the port imports on a machine without it; fontTools, where a font's
-coverage is read.
+rest of the port imports on a machine without it. The fonts ship with the
+package (``assets/fonts/``: the five DejaVu files under their license in
+``copyright``, and the Devanagari font that training/devanagari_font.py
+builds), so a machine without system fonts or fontTools renders the same
+pages; a font's coverage is read from its cmap table here, without
+fontTools.
 
 The reference trains nothing (all models are Azure/Gemini/Paddle-hosted), but
 the TPU rebuild owns its models, and this zero-egress environment has no
@@ -38,18 +44,22 @@ FONTS = [
 ]
 
 
+PACKAGE_FONTS = Path(__file__).resolve().parents[1] / "assets" / "fonts"
+DEVANAGARI_FONT = PACKAGE_FONTS / "OCRSynthDevanagari.ttf"
+
+
 def discover_fonts(extra_dir: str | None = None) -> list[Path]:
-    """Font files for rendering. The baked DejaVu set covers Latin; for
-    Devanagari (BASELINE config 3) point SYNTH_FONT_DIR at a directory with
-    e.g. NotoSansDevanagari — the renderer picks up every .ttf found there.
-    Generated asset fonts (training/devanagari_font.py) are included too.
-    """
+    """Font files for rendering: the five DejaVu files (each from the
+    system's DejaVu directory where it is there, else the package's copy),
+    the package's Devanagari font (training/devanagari_font.py), then every
+    .ttf of SYNTH_FONT_DIR (e.g. a real NotoSansDevanagari). The JAX
+    package lists the same fonts in the same order once its generated
+    Devanagari font exists."""
     import os
 
-    fonts = [_FONT_DIR / f for f in FONTS if (_FONT_DIR / f).is_file()]
-    asset_dir = Path(__file__).resolve().parents[2] / "assets" / "fonts"
-    if asset_dir.is_dir():
-        fonts += sorted(asset_dir.glob("*.ttf"))
+    fonts = [_FONT_DIR / f if (_FONT_DIR / f).is_file() else PACKAGE_FONTS / f
+             for f in FONTS]
+    fonts.append(DEVANAGARI_FONT)
     extra = extra_dir or os.environ.get("SYNTH_FONT_DIR")
     if extra and Path(extra).is_dir():
         fonts += sorted(Path(extra).glob("*.ttf"))
@@ -57,36 +67,70 @@ def discover_fonts(extra_dir: str | None = None) -> list[Path]:
 
 
 _CMAP_CACHE: dict[str, frozenset[int]] = {}
+# the cmap subtables fontTools' getBestCmap prefers, in its order
+_CMAP_PREFERENCES = ((3, 10), (0, 6), (0, 4), (3, 1), (0, 3), (0, 2), (0, 1), (0, 0))
 
 
 def font_codepoints(path: Path) -> frozenset[int]:
-    """Codepoints a font's cmap covers (fontTools, cached per path)."""
+    """Codepoints a font's cmap covers (cached per path): the keys of
+    fontTools' ``getBestCmap()``, read from the file's cmap table."""
     key = str(path)
     if key not in _CMAP_CACHE:
         try:
-            from fontTools.ttLib import TTFont
-
-            t = TTFont(key, lazy=True)
-            _CMAP_CACHE[key] = frozenset(t.getBestCmap().keys())
-            t.close()
+            _CMAP_CACHE[key] = cmap_codepoints(Path(key).read_bytes())
         except Exception:
             _CMAP_CACHE[key] = frozenset()
     return _CMAP_CACHE[key]
+
+
+def cmap_codepoints(data: bytes) -> frozenset[int]:
+    """The codepoints of a TrueType file's preferred cmap subtable
+    (formats 0, 4, 6 and 12; any other yields none)."""
+    import struct
+
+    n_tables = struct.unpack_from(">H", data, 4)[0]
+    for i in range(n_tables):
+        tag, _, table, _ = struct.unpack_from(">4sIII", data, 12 + 16 * i)
+        if tag == b"cmap":
+            break
+    else:
+        return frozenset()
+    subtables: dict[tuple[int, int], int] = {}
+    for i in range(struct.unpack_from(">H", data, table + 2)[0]):
+        pid, eid, off = struct.unpack_from(">HHI", data, table + 4 + 8 * i)
+        subtables.setdefault((pid, eid), table + off)
+    at = next((subtables[k] for k in _CMAP_PREFERENCES if k in subtables), None)
+    if at is None:
+        return frozenset()
+    fmt = struct.unpack_from(">H", data, at)[0]
+    if fmt == 0:
+        return frozenset(range(256))
+    if fmt == 6:
+        first, count = struct.unpack_from(">HH", data, at + 6)
+        return frozenset(range(first, first + count))
+    if fmt == 4:
+        seg = struct.unpack_from(">H", data, at + 6)[0] // 2
+        ends = struct.unpack_from(f">{seg}H", data, at + 14)
+        starts = struct.unpack_from(f">{seg}H", data, at + 16 + 2 * seg)
+        # fontTools leaves out the closing 0xFFFF segment
+        return frozenset(c for a, b in zip(starts[:-1], ends[:-1]) for c in range(a, b + 1))
+    if fmt == 12:
+        n = struct.unpack_from(">I", data, at + 12)[0]
+        groups = struct.unpack_from(f">{3 * n}I", data, at + 16)
+        return frozenset(c for g in range(n)
+                         for c in range(groups[3 * g], groups[3 * g + 1] + 1))
+    return frozenset()
 
 
 def fonts_covering(charset: Charset, paths: list[Path]) -> list[Path]:
     """Fonts that cover >=90% of the FULL charset (a font missing a script
     renders .notdef boxes, which poisons recognition training/eval — the
     round-2 Devanagari asset font leaking into Latin lines cost 30 CER
-    points before per-text selection existed). Ensures the generated
-    Devanagari font exists when the charset needs that script."""
+    points before per-text selection existed). Adds the package's
+    Devanagari font when the charset needs that script."""
     need = {ord(c) for c in charset.chars if c != " "}
-    if any(0x0900 <= cp <= 0x097F for cp in need):
-        from ocr_system_tpu_torch.training.devanagari_font import ensure_font
-
-        p = ensure_font()
-        if p not in paths:
-            paths = paths + [p]
+    if any(0x0900 <= cp <= 0x097F for cp in need) and DEVANAGARI_FONT not in paths:
+        paths = paths + [DEVANAGARI_FONT]
     good = [
         p for p in paths
         if len(need & font_codepoints(p)) >= 0.9 * len(need)

@@ -687,3 +687,393 @@ def train_deviation(got: dict, ref: dict) -> dict:
         out["bn"] = {m: {k: _rel(got["bn"][m][k], v) for k, v in stats.items()}
                      for m, stats in ref["bn"].items()}
     return out
+
+
+# ---------------- quality evaluation ----------------
+
+EVAL_EXPECTED = PACKAGE / "assets" / "eval_expected.json"
+# the eval phases' sizes: lines per charset, pages per e2e row, noisy
+# forms per extraction row, "Key: Value" documents, forms through the
+# engine and the extractor, squiggle forms
+EVAL_SIZES = {"lines": 100, "pages": 6, "forms": 25, "docs": 20, "forms_e2e": 4,
+              "signatures": 4}
+EVAL_PHASES = ("eval_rec", "eval_e2e_hybrid", "eval_e2e_classical", "eval_e2e_hindi",
+               "eval_extract", "eval_forms_e2e", "eval_signatures")
+# the engines the e2e rows score, as training/sweep_quality.py builds them
+EVAL_ENGINE = {"det_image_buckets": (960,), "det_prob_wire_bits": 4}
+# float32: where every rendered line and page has the record's digest,
+# items equal on this share, every CER within EVAL_CER_TOL and every rate
+# or F1 within EVAL_RATE_TOL of the record, every count equal; where the
+# pixels differ, no worse than the record by more than EVAL_QUALITY_CER /
+# EVAL_QUALITY_RATE
+EVAL_ITEM_SHARE = 0.98
+EVAL_CER_TOL = 0.005
+EVAL_RATE_TOL = 0.01
+EVAL_QUALITY_CER = 0.02
+EVAL_QUALITY_RATE = 0.05
+EVAL_COUNTS = ("n_lines", "n_pages", "n_docs", "repair_changed_pairs", "total_truth_pairs")
+# the detector settings of the det_settings phase, each on the served
+# hybrid engine at float32; the enhance kernel serves all but the last two
+DET_SETTINGS = {
+    "prob_wire_1": {"det_prob_wire_bits": 1},
+    "prob_wire_4": {"det_prob_wire_bits": 4},
+    "prob_wire_8": {"det_prob_wire_bits": 8},
+    "wire_2": {"det_wire_bits": 2},
+    "wire_8": {"det_wire_bits": 8},
+    "contrast_off": {"enable_contrast_enhancement": False},
+    "binarize": {"enable_adaptive_binarization": True},
+}
+DET_SETTINGS_PLAIN = ("contrast_off", "binarize")
+DET_SETTINGS_FORMS = 4
+
+
+def pixels_digest(a) -> str:
+    """sha256 of an array's dtype, shape and bytes."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}:{a.shape}:".encode() + a.tobytes()).hexdigest()
+
+
+def det_settings_record(out) -> dict:
+    """A page of the det_settings phase: its words (polygons to 0.01 px)
+    and the states of its selection marks and its handwriting boxes, the
+    parts of ``page_record`` that ``compare_to_expected`` reads."""
+    rec = page_record(out)
+    for w in rec["word"]:
+        w["polygon"] = [round(v, 2) for v in w["polygon"]]
+    return {"word": rec["word"], "selection_mark": [{"state": m["state"]}
+                                                    for m in rec["selection_mark"]],
+            "handwriting": [{"polygon": [round(v, 2) for v in h["polygon"]]}
+                            for h in rec["handwriting"]]}
+
+
+def eval_page_item(out) -> dict:
+    """A page's evaluated output: its markdown and handwriting boxes."""
+    return {"markdown": out.markdown,
+            "handwriting": [[round(float(v), 2) for v in b["polygon"]]
+                            for b in out.layout_boxes if b.get("type") == "handwriting"]}
+
+
+def eval_fields_item(result) -> dict:
+    return {"form_type": result.form_type,
+            "fields": [[f.field_key, f.field_value] for f in result.fields]}
+
+
+class Recorder:
+    """Wraps a recognizer, an engine or an extractor of either package for
+    the evaluation functions (training/evaluate.py) and records a digest of
+    each rendered line or page it is given (``digests``) and each item's
+    output (``items``: a line's text, ``eval_page_item``,
+    ``eval_fields_item``). Every other attribute passes through, so
+    ``hasattr`` tells a layout extractor from a text one as unwrapped."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.items: list = []
+        self.digests: list[str] = []
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name == "recognize_page":
+            return self._recognize_page
+        if name == "process_pages":
+            return self._process_pages
+        if name in ("extract_from_layout", "extract"):
+            return self._fields(attr)
+        return attr
+
+    def _recognize_page(self, page, quads):
+        self.digests.append(pixels_digest(page))
+        out = self._inner.recognize_page(page, quads)
+        self.items.append(out[0].text)
+        return out
+
+    def _process_pages(self, pages):
+        self.digests.extend(pixels_digest(p.pixels) for p in pages)
+        outs = self._inner.process_pages(pages)
+        self.items.extend(eval_page_item(o) for o in outs)
+        return outs
+
+    def _fields(self, fn):
+        def call(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            self.items.append(eval_fields_item(result))
+            return result
+        return call
+
+    def record(self, result) -> dict:
+        import dataclasses
+
+        if dataclasses.is_dataclass(result):
+            result = dataclasses.asdict(result)
+        return {"result": json.loads(json.dumps(result)), "items": self.items,
+                "digests": self.digests}
+
+
+def eval_kit(device, dtype: str, **engine) -> dict:
+    """The port's side of ``run_eval`` at ``dtype`` on the trained weights:
+    training/evaluate, the charsets and recognizers, the hybrid and
+    classical engines as training/sweep_quality.py builds them
+    (EVAL_ENGINE, updated by ``engine``), the layout extractor and the rule
+    extractor."""
+    from ocr_system_tpu_torch.engine.recognizer import Recognizer
+    from ocr_system_tpu_torch.extract.layout_model import LayoutModelExtractor
+    from ocr_system_tpu_torch.extract.rules import RuleExtractor
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.training import evaluate
+    from ocr_system_tpu_torch.training.run_evaluate import build_engine
+    from ocr_system_tpu_torch.training.synth_forms_heldout import HeldoutFormGenerator
+
+    charsets = {cs: get_charset(cs) for cs in ("latin", "devanagari")}
+    rec = {cs: Recognizer(Settings(rec_checkpoint=str(PACKAGE / "weights" / f"rec_{cs}.npz"),
+                                   storage_root="storage", compute_dtype=dtype),
+                          charset=charsets[cs], device=device)
+           for cs in charsets}
+    st = Settings(**TRAINED, storage_root="storage", compute_dtype=dtype,
+                  **{**EVAL_ENGINE, **engine})
+    engines = {kind: build_engine(kind, st, charsets["latin"], device)
+               for kind in ("hybrid", "classical")}
+    return {"E": evaluate, "heldout": HeldoutFormGenerator, "charsets": charsets, "rec": rec,
+            "engines": engines, "rules": RuleExtractor(),
+            "extractor": LayoutModelExtractor(Settings(compute_dtype=dtype), device=device)}
+
+
+EVAL_RENDERS = PACKAGE / "assets" / "eval_renders.npz"
+
+
+def _u8(image: np.ndarray) -> np.ndarray:
+    return (image * 255).astype(np.uint8)
+
+
+class RenderLog:
+    """Records what either package's renderers draw while it is entered:
+    ``TextRenderer.render_line`` and ``render_page`` of ``synth`` and
+    ``render_spec`` of ``synth_forms`` (the modules of one package). Each
+    event: its kind, the u8 image, and what the evaluations read besides
+    (a line's text and width; a page's quads and texts; a rendered spec's
+    element boxes and dropped pairs)."""
+
+    def __init__(self, synth, synth_forms):
+        self.modules = synth, synth_forms
+        self.events: list[dict] = []
+
+    def __enter__(self):
+        synth, forms = self.modules
+        cls = synth.TextRenderer
+        self.saved = (cls.render_line, cls.render_page, forms.render_spec)
+        line, page, spec_fn = self.saved
+        log = self.events
+
+        def render_line(renderer, *args, **kwargs):
+            s = line(renderer, *args, **kwargs)
+            log.append({"kind": "line", "image": _u8(s.image), "text": s.text,
+                        "width": int(s.width)})
+            return s
+
+        def render_page(renderer, *args, **kwargs):
+            s = page(renderer, *args, **kwargs)
+            log.append({"kind": "page", "image": _u8(s.image), "quads": s.quads,
+                        "texts": list(s.texts)})
+            return s
+
+        def render_spec(spec, *args, **kwargs):
+            s = spec_fn(spec, *args, **kwargs)
+            log.append({"kind": "spec", "image": _u8(s.image), "quads": s.quads,
+                        "texts": list(s.texts),
+                        "elements": [[e.text, e.x0, e.y0, e.x1, e.y1] for e in spec.elements],
+                        "dropped": sorted(spec.dropped_pair_ids)})
+            return s
+
+        cls.render_line, cls.render_page, forms.render_spec = render_line, render_page, render_spec
+        return self
+
+    def __exit__(self, *exc):
+        synth, forms = self.modules
+        cls = synth.TextRenderer
+        cls.render_line, cls.render_page, forms.render_spec = self.saved
+
+
+def save_renders(logs: dict[str, list[dict]]) -> tuple[dict, dict[str, np.ndarray]]:
+    """Render logs by phase -> (JSON-able events with each image, quads
+    array named by key, the arrays by key; an image drawn twice is stored
+    once)."""
+    arrays: dict[str, np.ndarray] = {}
+    out: dict[str, list[dict]] = {}
+    for phase, events in logs.items():
+        rows = out[phase] = []
+        for i, ev in enumerate(events):
+            row = {k: v for k, v in ev.items() if k not in ("image", "quads")}
+            row["image"] = key = "img/" + pixels_digest(ev["image"])[:20]
+            arrays[key] = ev["image"]
+            if "quads" in ev:
+                row["quads"] = f"quads/{phase}/{i}"
+                arrays[row["quads"]] = np.asarray(ev["quads"], np.float32)
+            rows.append(row)
+    return out, arrays
+
+
+class ReplayedRenders:
+    """While entered, the port's renderers return the recorded events in
+    their order instead of drawing (``save_renders``'s events and arrays):
+    the pixels, and the geometry and texts measured from them, that the
+    JAX package drew. The evaluations' random draws of what to draw still
+    run (the specs, generated by pure Python, are checked against the
+    record's element texts). A call out of order raises."""
+
+    def __init__(self, events: list[dict], arrays):
+        self.events, self.arrays, self.at = events, arrays, 0
+
+    def _next(self, kind: str) -> dict:
+        if self.at >= len(self.events) or self.events[self.at]["kind"] != kind:
+            raise AssertionError(f"replay: {kind} render #{self.at} is not in the record")
+        ev = self.events[self.at]
+        self.at += 1
+        return ev
+
+    def _image(self, ev) -> np.ndarray:
+        return self.arrays[ev["image"]].astype(np.float32) / 255.0
+
+    def __enter__(self):
+        from ocr_system_tpu_torch.training import synth, synth_forms
+
+        cls = synth.TextRenderer
+        self.saved = (cls.render_line, cls.render_page, synth_forms.render_spec)
+
+        def render_line(renderer, *args, **kwargs):
+            ev = self._next("line")
+            return synth.LineSample(image=self._image(ev), text=ev["text"], width=ev["width"])
+
+        def page_sample(ev):
+            return synth.PageSample(image=self._image(ev), quads=self.arrays[ev["quads"]],
+                                    texts=list(ev["texts"]), shrink_map=None,
+                                    shrink_mask=None, thresh_map=None, thresh_mask=None)
+
+        def render_page(renderer, *args, **kwargs):
+            return page_sample(self._next("page"))
+
+        def render_spec(spec, *args, **kwargs):
+            ev = self._next("spec")
+            if [e.text for e in spec.elements] != [row[0] for row in ev["elements"]]:
+                raise AssertionError(f"replay: spec #{self.at - 1} is not the recorded one")
+            for e, (_, x0, y0, x1, y1) in zip(spec.elements, ev["elements"]):
+                e.x0, e.y0, e.x1, e.y1 = x0, y0, x1, y1
+            spec.dropped_pair_ids.clear()
+            spec.dropped_pair_ids.update(ev["dropped"])
+            return page_sample(ev)
+
+        cls.render_line, cls.render_page = render_line, render_page
+        synth_forms.render_spec = render_spec
+        return self
+
+    def __exit__(self, *exc):
+        from ocr_system_tpu_torch.training import synth, synth_forms
+
+        cls = synth.TextRenderer
+        cls.render_line, cls.render_page, synth_forms.render_spec = self.saved
+
+
+def eval_renders() -> dict[str, np.ndarray]:
+    with np.load(EVAL_RENDERS) as z:
+        return {k: z[k] for k in z.files}
+
+
+def run_eval(name: str, kit: dict, sizes: dict = EVAL_SIZES) -> dict[str, dict]:
+    """One eval phase (EVAL_PHASES) with either package's evaluation
+    module and models in ``kit``: "E" (training/evaluate), "heldout"
+    (HeldoutFormGenerator), "charsets" and "rec" (by "latin" and
+    "devanagari"), "engines" ("hybrid", "classical"), "extractor" (the
+    layout model) and "rules" (the rule extractor). Returns each run's
+    ``Recorder.record``, by run."""
+    E = kit["E"]
+    runs = {}
+    if name == "eval_rec":
+        for cs in ("latin", "devanagari"):
+            r = Recorder(kit["rec"][cs])
+            runs[cs] = r.record(E.evaluate_recognizer(r, kit["charsets"][cs],
+                                                      n_lines=sizes["lines"]))
+    elif name.startswith("eval_e2e_"):
+        r = Recorder(kit["engines"]["classical" if name.endswith("classical") else "hybrid"])
+        cs = kit["charsets"]["devanagari" if name.endswith("hindi") else "latin"]
+        runs["pages"] = r.record(E.evaluate_end_to_end(r, cs, n_pages=sizes["pages"]))
+    elif name == "eval_extract":
+        for run, kw in (("infamily", {}), ("heldout", {"generator": kit["heldout"](seed=101)})):
+            r = Recorder(kit["extractor"])
+            runs[run] = r.record(E.evaluate_form_extraction(r, n_docs=sizes["forms"], **kw))
+        r = Recorder(kit["rules"])
+        runs["field_rules"] = r.record(E.evaluate_field_extraction(r, n_docs=sizes["docs"]))
+    elif name == "eval_forms_e2e":
+        eng, ex = Recorder(kit["engines"]["hybrid"]), Recorder(kit["extractor"])
+        runs["pages"] = eng.record(E.evaluate_form_extraction_e2e(
+            eng, ex, n_docs=sizes["forms_e2e"]))
+        runs["fields"] = ex.record({})
+    elif name == "eval_signatures":
+        r = Recorder(kit["engines"]["hybrid"])
+        runs["pages"] = r.record(E.evaluate_signature_detection(r, n_docs=sizes["signatures"]))
+    else:
+        raise ValueError(f"unknown eval phase {name!r}")
+    return runs
+
+
+def _leaves(obj, path: str = ""):
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _leaves(v, f"{path}/{k}" if path else k)
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield path, float(obj)
+
+
+def same_item(a, b) -> bool:
+    """Two recorded items alike: texts and fields equal; a page's markdown
+    equal and its handwriting boxes each within 2 px."""
+    if isinstance(a, dict) and "markdown" in a:
+        return (a["markdown"] == b["markdown"]
+                and len(a["handwriting"]) == len(b["handwriting"])
+                and all(np.abs(np.subtract(p, q)).max() <= 2.0
+                        for p, q in zip(a["handwriting"], b["handwriting"])))
+    return a == b
+
+
+def compare_eval(want: dict[str, dict], got: dict[str, dict], gate: bool) -> dict:
+    """An eval phase's runs against the record's: whether every digest is
+    equal, the share of items alike, each aggregate's deviation, and with
+    ``gate`` the misses of the float32 bar (EVAL_* above): the exact bar
+    where the pixels are the record's, the quality bar where they are
+    not."""
+    out: dict = {"runs": {}, "misses": []}
+    for run, w in want.items():
+        g = got[run]
+        digests_equal = w["digests"] == g["digests"]
+        alike = [same_item(a, b) for a, b in zip(w["items"], g["items"], strict=True)]
+        share = sum(alike) / max(len(alike), 1)
+        want_r, got_r = dict(_leaves(w["result"])), dict(_leaves(g["result"]))
+        dev = {k: got_r[k] - v for k, v in want_r.items()}
+        out["runs"][run] = {
+            "digests_equal": digests_equal,
+            "pixels_differ": sum(a != b for a, b in zip(w["digests"], g["digests"])),
+            "items": len(alike), "items_alike": share,
+            "result": got_r, "deviation": dev,
+        }
+        if not gate:
+            continue
+        tag = f"{run}: "
+        for k, d in dev.items():
+            leaf = k.rsplit("/", 1)[-1]
+            if leaf in EVAL_COUNTS:
+                if d != 0:
+                    out["misses"].append(tag + f"{k} {got_r[k]} != {want_r[k]}")
+            elif digests_equal:
+                tol = EVAL_CER_TOL if "cer" in leaf else EVAL_RATE_TOL
+                if abs(d) > tol:
+                    out["misses"].append(tag + f"{k} off by {d:+.4f} (bar {tol})")
+            elif "cer" in leaf and d > EVAL_QUALITY_CER:
+                out["misses"].append(tag + f"{k} worse by {d:+.4f} (bar {EVAL_QUALITY_CER})")
+            elif "cer" not in leaf and d < -EVAL_QUALITY_RATE:
+                out["misses"].append(tag + f"{k} worse by {d:+.4f} (bar {EVAL_QUALITY_RATE})")
+        if digests_equal and share < EVAL_ITEM_SHARE:
+            out["misses"].append(tag + f"items alike {share:.3f} < {EVAL_ITEM_SHARE}")
+    return out
+
+
+def eval_expected() -> dict:
+    return json.loads(EVAL_EXPECTED.read_text())

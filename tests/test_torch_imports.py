@@ -155,17 +155,18 @@ def test_port_runs_without_the_jax_stack():
 # the sanctioned lazy imports: image decoding and the PDF renderer's canvas
 # need PIL, the serving path does not (the subprocess test above runs the
 # path, a scanned PDF upload included, without it); the synthetic line and
-# page renderers of training need PIL, and reading or building a font
-# needs fontTools, the layout trainer's form generator neither
+# page renderers of training need PIL, and building a font needs fontTools
+# (the renderers read a font's coverage from its cmap table), the layout
+# trainer's form generator neither
 ALLOWED = {("ocr_system_tpu_torch/engine/preprocess.py", "decode_image", "PIL")} | {
     ("ocr_system_tpu_torch/engine/pdf.py", method, "PIL")
     for method in ("__init__", "_pil_font", "_decode_image_xobject", "_paste_image", "finish")} | {
     ("ocr_system_tpu_torch/training/synth.py", method, "PIL")
     for method in ("_font", "render_line", "render_page")} | {
     ("ocr_system_tpu_torch/training/synth_forms.py", "render_spec", "PIL"),
-    ("ocr_system_tpu_torch/training/synth.py", "font_codepoints", "fontTools"),
     ("ocr_system_tpu_torch/training/devanagari_font.py", "build_font", "fontTools"),
-    ("chip_smoke.py", "pil_version", "PIL")}  # the service phase reports whether PIL imports
+    ("chip_smoke.py", "pil_version", "PIL"),  # the service phase reports whether PIL imports
+    ("chip_smoke.py", "phase_fonts", "PIL")}  # the fonts phase reports PIL's FreeType
 
 
 def _imports(path: Path):

@@ -25,6 +25,9 @@ from ocr_system_tpu_torch.training import synth_forms as SF
 from ocr_system_tpu_torch.training import train as T
 
 torch.set_num_threads(1)
+# the port always lists its committed Devanagari font; the JAX renderer
+# lists its own once it exists, so build it before comparing renders
+JDF.ensure_font()
 
 # (seed, deva_fraction): a Latin generator and one with Hindi forms
 GENERATORS = [(0, None), (5, 0.5)]

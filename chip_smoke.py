@@ -80,6 +80,26 @@ drew (``assets/eval_renders.npz``, replayed), each item and score held
 against the JAX record at float32 and reported at bf16, with the share of
 each phase spent in edit distances.
 
+Last, the parallel layer (core/mesh.py, parallel/; the multichip_*
+phases): the default mesh (``MESH_SHAPE``/``Settings.mesh_shape``,
+``dp=-1``) must be dp over every visible card; the served engine at
+float32 runs the 8 Latin forms under it and then under a virtual dp=4
+mesh (this card named 4 times; 2 pages a shard): 569 of 569 words as the
+JAX record, the same records at dp=4 as at dp=1, and the enhance and crop
+kernels launched on every dp shard; field extraction through
+``get_extractor`` under a virtual sp=4 mesh serves ring attention: the 17
+documents' 146 fields equal to the JAX record, and at 2048 tokens every
+output within 1e-4 of the dense forward's largest value, with the forward
+ms of both; the three trainers' float32 steps over virtual meshes (rec and
+det dp=4, layout dp=2 x tp=2) within the bar each one-device step was
+held to, and their BatchNorm running statistics against the one-device
+step's within the same bar; the 512 x 8 extractor's blocks as 4 GPipe
+stages of 2 with 8 microbatches, forward within 1e-5 and gradients within
+1e-4 of the serial stack; and ``utils/multichip.dryrun_multichip`` on the
+virtual 4-way mesh. A virtual mesh's times measure the schedule on one
+card, not multi-card speed; the kernels line adds each kernel's launches
+per dp shard of the virtual wave.
+
 Each phase prints one JSON line; then one line with every kernel's numbers,
 then the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
@@ -266,7 +286,8 @@ def track_dispatches(recognizer) -> dict:
 def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes: float,
                  tag: str, leaders_any_length: bool = False,
                  also: dict[str, list[dict]] | None = None, routing_equal: bool = False,
-                 hindi: int = 0, min_hindi_text: float = 0.0) -> dict:
+                 hindi: int = 0, min_hindi_text: float = 0.0,
+                 records_out: list | None = None) -> dict:
     """One wave of forms through the served engine, each page held against
     the JAX package's record of it: at least ``min_text`` of the JAX words
     matched by a port word (IoU >= 0.9 and the same text; with
@@ -279,7 +300,8 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
     the crop kernel), and the share of their words matched is reported
     against ``min_hindi_text`` (``hindi_bar_met``), ungated. Every miss is
     printed; any other shortfall prints the row and raises. ``also``:
-    further records to report the exact text share against, ungated."""
+    further records to report the exact text share against, ungated;
+    ``records_out``: a list the pages' records are appended to."""
     from ocr_system_tpu_torch.utils.smoke import compare_to_expected, page_record, text_share
 
     if engine.settings.rec_charset == "auto" and engine.devanagari is None:
@@ -296,6 +318,8 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
             del engine.devanagari._rec_on_stack
     check_outputs(outs, pages)
     records = [page_record(*r) for r in zip(outs, engine.routed, engine.rescued)]
+    if records_out is not None:
+        records_out.extend(records)
     per_page = [compare_to_expected(e, r) for e, r in zip(expected, records)]
     n = sum(c["words"] for c in per_page)
     exact = sum(c["matched"] for c in per_page)
@@ -882,10 +906,11 @@ TRAIN_MODELS = {"rec": "SVTR 192 x 6, Latin, 64 lines at W 320",
                 "layout": "layout transformer 512 x 8, 32 sequences at 768"}
 
 
-def train_model(name: str, dtype: str, loss_dtype=None):
+def train_model(name: str, dtype: str, loss_dtype=None, mesh=None):
     """The model a trainer starts from, without weights, and its step
     function (det without its augmentation, as the JAX record), at compute
-    ``dtype``; ``loss_dtype`` sets the layout heads' cross-entropy dtype."""
+    ``dtype``, the batch split over ``mesh``'s dp; ``loss_dtype`` sets the
+    layout heads' cross-entropy dtype."""
     import torch
 
     from ocr_system_tpu_torch.core.dtypes import DTypePolicy
@@ -898,13 +923,13 @@ def train_model(name: str, dtype: str, loss_dtype=None):
     policy = DTypePolicy(compute_dtype=getattr(torch, dtype))
     if name == "rec":
         model = SVTRRecognizer(get_charset("latin").size, policy=policy)
-        step = T.make_rec_train_step()
+        step = T.make_rec_train_step(mesh)
     elif name == "det":
         model = DBNet(policy=policy, thresh_head=True)
-        step = T.make_det_train_step(augment=False)
+        step = T.make_det_train_step(augment=False, mesh=mesh)
     else:
         model = LayoutExtractor(get_charset("multilingual").size, dim=512, depth=8)
-        step = T.make_layout_train_step(policy.compute_dtype, loss_dtype)
+        step = T.make_layout_train_step(policy.compute_dtype, loss_dtype, mesh)
     return model, step
 
 
@@ -943,10 +968,11 @@ def train_record(model, metrics: list[dict], want: dict) -> tuple[dict, dict]:
     """A run's numbers laid out as the JAX record's rows ``want``: per step
     the loss, the gradient norm (and tag accuracy), after the last step
     the parameter-group norms and the recorded BatchNorms' statistics; and
-    the model's final state dict on the host."""
+    the model's final state dict on the host (tp slices gathered)."""
+    from ocr_system_tpu_torch.parallel.sharding import dense_state_dict
     from ocr_system_tpu_torch.training.train import group_norms
 
-    after = {k: v.cpu() for k, v in model.state_dict().items()}
+    after = {k: v.cpu() for k, v in dense_state_dict(model).items()}
     got = {"loss": [m["loss"].item() for m in metrics],
            "grad_norm": [m["grad_norm"].item() for m in metrics],
            "group_norms": group_norms(after)}
@@ -959,13 +985,15 @@ def train_record(model, metrics: list[dict], want: dict) -> tuple[dict, dict]:
 
 
 def train_run(name: str, dtype: str, device, batch: dict, start: dict, lr: float, steps: int,
-              want: dict, tf32: bool = False, loss_dtype=None) -> tuple[dict, dict, float]:
+              want: dict, tf32: bool = False, loss_dtype=None,
+              mesh=None) -> tuple[dict, dict, float]:
     """``steps`` steps of a trainer's step function on ``batch`` from the
     weights ``start`` at compute ``dtype`` (float64: the parameters and
     optimizer too), TF32 on or off in cuDNN and cuBLAS for the run (restored
-    after): the run's record (``train_record``), its final state dict and
-    its mean step ms over the steps after the first (CUDA events; host
-    clock on the CPU)."""
+    after), over ``mesh`` (dp; the layout model's weights placed by
+    ``init_layout_state_sharded``, split over its tp): the run's record
+    (``train_record``), its final state dict and its mean step ms over the
+    steps after the first (CUDA events; host clock on the CPU)."""
     import torch
 
     from ocr_system_tpu_torch.training import train as T
@@ -973,11 +1001,14 @@ def train_run(name: str, dtype: str, device, batch: dict, start: dict, lr: float
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        model, step = train_model(name, dtype, loss_dtype)
+        model, step = train_model(name, dtype, loss_dtype, mesh)
         model.load_state_dict(start)
         if dtype == "float64":
             model.double()
-        state = T.init_state(model, lr, device)
+        if name == "layout" and mesh is not None:
+            state = T.init_layout_state_sharded(model, lr, mesh)
+        else:
+            state = T.init_state(model, lr, device)
         model.train()
         cuda = device.type == "cuda"
         metrics, marks = [], []
@@ -1429,6 +1460,272 @@ def phase_det_settings(device, forms, base: dict, record: dict, smi: str = "") -
     return row
 
 
+# ---------------- the parallel layer (core/mesh.py, parallel/) ----------------
+
+VIRTUAL = 4  # the virtual mesh's ways: one card named VIRTUAL times
+
+
+def virtual_mesh(spec: str, device, n: int = VIRTUAL):
+    """``spec`` over ``device`` named ``n`` times: a virtual mesh, whose
+    times measure the schedule on one card, not multi-card speed."""
+    from ocr_system_tpu_torch.core.mesh import build_mesh
+
+    return build_mesh(spec, [device] * n)
+
+
+def mesh_row(mesh) -> dict:
+    return {"shape": mesh.shape, "devices": mesh.size,
+            "distinct_devices": len(mesh.distinct_devices()),
+            "virtual": len(mesh.distinct_devices()) < mesh.size}
+
+
+def phase_dp_wave(device, pages, expected: list[dict], settings: dict, default_mesh,
+                  smi: str = "", min_text: float = 1.0) -> dict:
+    """The served engine (``settings``) on one wave, first under the
+    default mesh (dp=1 on a one-card machine: unsharded), then under a
+    virtual dp=``VIRTUAL`` mesh with its pages split over the dp devices, a
+    new engine for each (an engine resolves its mesh at its first wave).
+    Gates: each wave's words against the JAX record (``phase_hybrid`` at
+    ``min_text``, recognizers and rescue counts equal), the dp wave's
+    records equal to the dp=1 wave's, its det canvases split, and on the
+    card the enhance and crop kernels launched on every dp shard."""
+    import torch
+
+    from ocr_system_tpu_torch.core.mesh import DATA_AXIS, ShardedBatch, mesh_context
+    from ocr_system_tpu_torch.kernels import crop, enhance
+    from ocr_system_tpu_torch.utils import smoke
+
+    rows, records = {}, {}
+    for tag, mesh in (("dp1", default_mesh), (f"dp{VIRTUAL}", virtual_mesh("dp=-1", device))):
+        engine = smoke.new_engine(device, **settings)
+        records[tag] = []
+        with mesh_context(mesh):
+            engine.process_pages(pages[:1])  # first call: cuDNN/cuBLAS set-up
+            rows[tag] = phase_hybrid(engine, pages, expected, min_text, min_text,
+                                     f"multichip_{tag}", routing_equal=True,
+                                     records_out=records[tag])
+            split = engine.detector.neural._mesh() if hasattr(engine.detector, "neural") \
+                else engine.detector._mesh()
+        rows[tag]["mesh"] = mesh_row(mesh)
+        rows[tag]["split_over_dp"] = split is not None
+    shards = {"enhance": dict(enhance.LAUNCHES.by_shard), "crop": dict(crop.LAUNCHES.by_shard)}
+    dp = f"dp{VIRTUAL}"
+    row = {"phase": "multichip_dp_wave", "pages": len(pages),
+           "pages_per_dp_shard": len(pages) / VIRTUAL,
+           "words": {k: r["words"] for k, r in rows.items()},
+           "words_matched": {k: r["words_matched"] for k, r in rows.items()},
+           "words_expected": rows["dp1"]["words_expected"],
+           "records_equal": records["dp1"] == records[dp],
+           "meshes": {k: r["mesh"] for k, r in rows.items()},
+           "wave_ms": {k: r["wall_s"] * 1e3 for k, r in rows.items()},
+           "launches": {k: r["launches"] for k, r in rows.items()},
+           "launches_per_shard": shards, "stage_ms": {k: r["stage_ms"] for k, r in rows.items()},
+           "timing_note": "the dp wave runs its shards one after another on one card",
+           "nvidia_smi": smi}
+    failed = []
+    if rows["dp1"]["split_over_dp"] or not rows[dp]["split_over_dp"]:
+        failed.append(f"split over dp: {rows['dp1']['split_over_dp']} / "
+                      f"{rows[dp]['split_over_dp']}")
+    if not row["records_equal"]:
+        failed.append("the dp wave's pages differ from the dp=1 wave's")
+    if torch.device(device).type == "cuda" and any(
+            shards[k].get(i, 0) < 1 for k in shards for i in range(VIRTUAL)):
+        failed.append(f"a kernel missed a dp shard: {shards}")
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError("multichip_dp_wave: " + "; ".join(failed))
+    return row
+
+
+def phase_sp_extract(device, docs: dict, expected: dict, smi: str = "",
+                     buckets=(512, 1024, 2048), logits_at: int = 2048) -> dict:
+    """The trained 512 x 8 extractor through ``get_extractor`` under a
+    virtual sp=``VIRTUAL`` mesh (``LayoutModelExtractor`` turns ring
+    attention on from it) at float32: every document's fields equal to the
+    JAX record (``phase_extract``, exact), and at ``logits_at`` seeded
+    tokens every output of the ring forward within 1e-4 of its largest
+    value of the dense forward's (the same weights, no mesh). Forward ms
+    of both at ``buckets`` (one card: the ring's blocks run in turn)."""
+    import torch
+
+    from ocr_system_tpu_torch.core.config import Settings
+    from ocr_system_tpu_torch.core.mesh import mesh_context
+    from ocr_system_tpu_torch.extract.layout_model import get_extractor
+    from ocr_system_tpu_torch.models.layout_extractor import COORD_BUCKETS
+
+    s = Settings(compute_dtype="float32")
+    mesh = virtual_mesh("dp=1,tp=1,sp=-1", device)
+    dense = get_extractor(s, device=device)
+    with mesh_context(mesh):
+        ring = get_extractor(s, device=device)
+        if not (ring.model.sequence_parallel and not dense.model.sequence_parallel):
+            raise AssertionError("multichip_sp_extract: sequence parallelism not from the mesh")
+        row = phase_extract(ring, docs, expected, "multichip_sp_extract", True, smi=smi,
+                            buckets=buckets)
+        rng = np.random.default_rng(SEED + 5)
+        ids = torch.from_numpy(rng.integers(1, ring.charset.size, (1, logits_at))).to(device)
+        boxes = torch.from_numpy(np.sort(rng.integers(0, COORD_BUCKETS, (1, logits_at, 4)), -1))
+        mask = torch.ones((1, logits_at), dtype=torch.long, device=device)
+        mask[:, logits_at - logits_at // 5:] = 0  # a padded tail
+        with torch.inference_mode():
+            got = ring.model(ids, boxes.to(device), mask, ring.dtype)
+    with torch.inference_mode():
+        want = dense.model(ids, boxes.to(device), mask, dense.dtype)
+    valid = mask[0].bool()
+
+    def tokens(t):  # the valid tokens of a per-token output
+        return t[:, valid] if t.shape[1] == logits_at else t
+
+    rel = {k: ((tokens(got[k]) - tokens(w)).abs().max()
+               / tokens(w).abs().max().clamp_min(1e-30)).item() for k, w in want.items()}
+    row.update(phase="multichip_sp_extract", mesh=mesh_row(mesh), logits_tokens=logits_at,
+               logits_rel_diff=rel, forward_ring=row.pop("forward"),
+               forward_dense=time_forward(dense, buckets),
+               timing_note="the ring's blocks run one after another on one card")
+    if max(rel.values()) > 1e-4:
+        emit({**row, "failed": "ring vs dense"})
+        raise AssertionError(f"multichip_sp_extract: ring vs dense outputs {rel}")
+    return row
+
+
+def phase_train_mesh(name: str, device, expected: dict, bar: dict | None, mesh,
+                     smi: str = "", n: int | None = None) -> dict:
+    """3 float32 steps of a trainer over ``mesh`` (its dp, and tp for the
+    layout model) on the committed batch from the trained weights, and the
+    same steps on one device: the mesh run's losses, gradient norm and
+    parameter-group norms against the JAX record within ``bar`` (the
+    spread ``phase_train`` held the one-device run to, its widened norms
+    included), and its BatchNorm running statistics against the one-device
+    run's within the same bar. ``n`` cuts the batch (the CPU tests) and
+    skips the bars."""
+    import torch
+
+    from ocr_system_tpu_torch.training import train as T
+    from ocr_system_tpu_torch.utils import smoke
+
+    device = torch.device(device)
+    want = expected["float32"][name]
+    batch = smoke.train_batches()[name]
+    if n is not None:
+        batch = {k: v[:n] for k, v in batch.items()}
+    batch = T.to_device(batch, device)
+    start = smoke.train_start(name)
+    lr, steps = expected["lr"][name], expected["steps"]
+    one, _, one_ms = train_run(name, "float32", device, batch, start, lr, steps, want)
+    got, _, ms = train_run(name, "float32", device, batch, start, lr, steps, want, mesh=mesh)
+    row = {"phase": f"multichip_train_{name}", "model": TRAIN_MODELS[name],
+           "mesh": mesh_row(mesh), "loss": got["loss"], "one_device_loss": one["loss"],
+           "jax_loss": want["loss"], "grad_norm": got["grad_norm"],
+           "step_ms" if device.type == "cuda" else "host_step_ms": ms,
+           "one_device_step_ms": one_ms,
+           "timing_note": "the shards run in lockstep threads on one card", "nvidia_smi": smi}
+    if n is not None:
+        return row
+    dev, vs_one = smoke.train_deviation(got, want), smoke.train_deviation(got, one)
+    misses = train_bar_misses(dev, bar)
+    misses += [f"vs one device: {m}" for m in train_bar_misses(
+        {"loss": [], "grad_norm": 0.0, "group_norms": {}, "bn": vs_one.get("bn", {})}, bar)]
+    row.update(deviation=dev, vs_one_device=vs_one, bar_factor=TRAIN_BAR_FACTOR,
+               bar_misses=misses)
+    if misses:
+        raise AssertionError(f"multichip_train_{name} outside its bar: {json.dumps(row)}")
+    return row
+
+
+def phase_gpipe(device, smi: str = "", n_micro: int = 8, mb: int = 2, tokens: int = 256,
+                depth: int | None = None) -> dict:
+    """The trained 512 x 8 extractor's blocks as pp=``VIRTUAL`` GPipe
+    stages (2 blocks each) on a virtual mesh, ``n_micro`` microbatches of
+    ``mb`` x ``tokens`` seeded activations, float32 (TF32 off): the output
+    and the gradient of a squared-error loss for every stage parameter
+    through the schedule against ``serial_reference`` (forward within 1e-5
+    and gradients within 1e-4 of their largest value), and the ms of
+    forward and backward of both (one card: the stages run in turn)."""
+    import torch
+
+    from ocr_system_tpu_torch.core.weights import load_npz
+    from ocr_system_tpu_torch.models.charsets import get_charset
+    from ocr_system_tpu_torch.models.layout_extractor import LayoutExtractor
+    from ocr_system_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        serial_reference,
+        stack_stage_params,
+    )
+    from ocr_system_tpu_torch.utils import smoke
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = LayoutExtractor(get_charset("multilingual").size, dim=512, depth=8)
+        model.load_state_dict({k: v.float() for k, v in
+                               load_npz(smoke.PACKAGE / "weights" / "extract.npz").items()})
+        blocks = list(model.blocks)[:depth]
+        mesh = virtual_mesh("pp=-1", device)
+        per = len(blocks) // VIRTUAL
+        stages = [{f"{j}.{k}": v.detach().to(device) for j in range(per)
+                   for k, v in blocks[d * per + j].state_dict().items()} for d in range(VIRTUAL)]
+        template = blocks[0].to(device)
+        width = template.norm1.weight.numel()
+
+        def stage_fn(p, x):
+            shape = x.shape
+            h = x.reshape(-1, shape[-2], shape[-1])
+            bias = torch.zeros(h.shape[0], 1, 1, h.shape[1], device=h.device)
+            valid = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
+            for j in range(per):
+                w = {k.split(".", 1)[1]: v for k, v in p.items() if k.startswith(f"{j}.")}
+                h = torch.func.functional_call(template, w, (h, bias, valid))
+            return h.reshape(shape)
+
+        g = torch.Generator().manual_seed(SEED + 6)
+        x = torch.randn(n_micro, mb, tokens, width, generator=g).to(device)
+        tgt = torch.randn(n_micro, mb, tokens, width, generator=g).to(device)
+        stacked = {k: v.requires_grad_() for k, v in stack_stage_params(stages).items()}
+        for s in stages:
+            for v in s.values():
+                v.requires_grad_()
+        timed = {}
+        cuda = torch.device(device).type == "cuda"
+
+        def run(name, fn, leaves):
+            """fn's forward and backward, twice: the second run is timed
+            (host clock around a synchronised run)."""
+            for _ in range(2):
+                for v in leaves:
+                    v.grad = None
+                if cuda:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn()
+                ((out - tgt) ** 2).mean().backward()
+                if cuda:
+                    torch.cuda.synchronize()
+            timed[name] = (time.perf_counter() - t) * 1e3
+            return out.detach()
+
+        out = run("pipeline", lambda: pipeline_apply(stage_fn, stacked, x, mesh),
+                  list(stacked.values()))
+        ref = run("serial", lambda: serial_reference(stage_fn, stages, x),
+                  [v for s in stages for v in s.values()])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    fwd = ((out - ref).abs().max() / ref.abs().max()).item()
+    grad = {k: ((stacked[k].grad - torch.stack([s[k].grad for s in stages])).abs().max()
+                / torch.stack([s[k].grad for s in stages]).abs().max().clamp_min(1e-30)).item()
+            for k in stacked}
+    row = {"phase": "multichip_gpipe", "mesh": mesh_row(mesh), "stages": VIRTUAL,
+           "blocks_per_stage": per, "microbatches": n_micro, "microbatch": [mb, tokens, width],
+           "ticks": n_micro + VIRTUAL - 1, "forward_rel_diff": fwd,
+           "grad_rel_diff_max": max(grad.values()), "fwd_bwd_ms": timed,
+           "timing_note": "host clock, after a warm-up; the stages run one after another "
+                          "on one card",
+           "nvidia_smi": smi}
+    if fwd > 1e-5 or max(grad.values()) > 1e-4:
+        emit({**row, "failed": "pipeline vs serial", "grad_rel_diff": grad})
+        raise AssertionError(f"multichip_gpipe: forward {fwd}, gradients {grad}")
+    return row
+
+
 # Spinning the card before the timed launches lets the host queue them
 # all first, so the events time the kernels and not the host's launch
 # overhead (a 15 us kernel is shorter than one Python wrapper call).
@@ -1818,6 +2115,7 @@ def main() -> int:
     # batch from the trained weights, against the JAX record (float32
     # within its bar, bf16 reported), then train_layout end to end ----
     want_train, spread = smoke.train_expected(), smoke.train_spread()
+    bars = {}  # the float32 bar each one-device step was held to
     for name in smoke.TRAIN_NAMES:
         for dtype in ("float32", "bfloat16"):
             t = time.perf_counter()
@@ -1825,6 +2123,7 @@ def main() -> int:
                               strict=spread["bfloat16_strict"])
             emit({**row, "elapsed_s": time.perf_counter() - t})
             if dtype == "float32":
+                bars[name] = row["spread"]
                 t = time.perf_counter()
                 emit({**phase_train_tf32_control(name, dev, want_train, row["exact"]),
                       "elapsed_s": time.perf_counter() - t})
@@ -1833,6 +2132,40 @@ def main() -> int:
     for name in ("rec", "det"):
         t = time.perf_counter()
         emit({**phase_train_cli(name, dev, smi=smi), "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 10: the parallel layer. The real default mesh (dp=-1: one
+    # card here), then virtual meshes of this card named VIRTUAL times:
+    # the served wave split over dp, extraction with ring attention over
+    # sp, the train steps over dp (and tp), GPipe over pp, and the dry
+    # run of every mesh path ----
+    from ocr_system_tpu_torch.core.mesh import get_mesh
+
+    t_mc = time.perf_counter()
+    default_mesh = get_mesh()
+    if default_mesh.shape != {"dp": torch.cuda.device_count()}:
+        raise AssertionError(f"the default mesh is {default_mesh}")
+    emit({"phase": "multichip_default_mesh", "mesh": mesh_row(default_mesh),
+          "mesh_shape_setting": Settings().mesh_shape})
+    t = time.perf_counter()
+    mc_wave = phase_dp_wave(dev, as_pages(forms), want["float32"],
+                            {**expected["settings"], "compute_dtype": "float32"},
+                            default_mesh, smi=smi)
+    emit({**mc_wave, "elapsed_s": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({**phase_sp_extract(dev, docs, want_ex["docs"]["float32"], smi=smi),
+          "elapsed_s": time.perf_counter() - t})
+    for name, spec in (("rec", "dp=-1"), ("det", "dp=-1"), ("layout", "dp=2,tp=2")):
+        t = time.perf_counter()
+        emit({**phase_train_mesh(name, dev, want_train, bars[name], virtual_mesh(spec, dev),
+                                 smi=smi), "elapsed_s": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({**phase_gpipe(dev, smi=smi), "elapsed_s": time.perf_counter() - t})
+    from ocr_system_tpu_torch.utils.multichip import dryrun_multichip
+
+    t = time.perf_counter()
+    emit({"phase": "multichip_dryrun", **dryrun_multichip(VIRTUAL, devices=[dev] * VIRTUAL),
+          "elapsed_s": time.perf_counter() - t})
+    emit({"phase": "multichip", "elapsed_s": time.perf_counter() - t_mc})
 
     sources = {
         "enhance": "ocr_system_tpu/kernels/preprocess_pallas.py:117",
@@ -1851,6 +2184,8 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "form": k["form"], "warm_ms": k["warm_ms"],
             "share_of_bound": k["share_of_bound"],
+            # the virtual dp wave's launches on each of its dp shards
+            "launches_per_dp_shard": mc_wave["launches_per_shard"][name],
         })
     emit({"kernels": kernels, "total_s": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -23,9 +23,15 @@ logger = logging.getLogger(__name__)
 
 
 def save_checkpoint(path: str | Path, model_or_state: nn.Module | dict) -> Path:
-    """Write a model's state dict (or a state dict) as a float32 ``.npz``."""
-    state = (model_or_state.state_dict() if isinstance(model_or_state, nn.Module)
-             else model_or_state)
+    """Write a model's state dict (or a state dict) as a float32 ``.npz``;
+    a model's weights split over tp are gathered into the unsharded
+    model's keys."""
+    if isinstance(model_or_state, nn.Module):
+        from ocr_system_tpu_torch.parallel.sharding import dense_state_dict
+
+        state = dense_state_dict(model_or_state)
+    else:
+        state = model_or_state
     path = Path(path).absolute()
     if path.suffix != ".npz":
         raise ValueError(f"checkpoint {path}: the port writes .npz files")

@@ -1,8 +1,7 @@
 """Environment-driven configuration (port of ocr_system_tpu/core/config.py).
 
 Same fields, defaults and upper-cased environment variables as the JAX
-package's ``Settings``, minus ``mesh_shape`` (the port has no device mesh
-yet). A stdlib dataclass instead of pydantic: values are read from the
+package's ``Settings``. A stdlib dataclass instead of pydantic: values are read from the
 process environment and an optional ``.env`` file, case-insensitively,
 unknown keys ignored, strings coerced to each field's type.
 """
@@ -119,6 +118,9 @@ class Settings:
     llm_rate_limit_per_minute: int = 30
 
     # --- device knobs (no reference analog) ---
+    # the device mesh (core/mesh.py), e.g. "dp=4,tp=2"; -1 = fill the
+    # remaining devices, so the default shards page batches over every card
+    mesh_shape: str = "dp=-1"
     # kept so settings files stay interchangeable with the JAX package;
     # the port has no Pallas: on a CUDA tensor it always launches its own
     # CUDA kernels (kernels/), on a CPU tensor their plain versions
@@ -309,6 +311,18 @@ class Settings:
     @property
     def max_upload_size_bytes(self) -> int:
         return self.max_upload_size_mb * 1024 * 1024
+
+    def parsed_mesh_shape(self) -> dict[str, int]:
+        """Parse "dp=4,tp=2" into {"dp": 4, "tp": 2}. A single -1 axis is
+        filled with the remaining device count at mesh build time."""
+        out: dict[str, int] = {}
+        for part in self.mesh_shape.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, size = part.partition("=")
+            out[name.strip()] = int(size)
+        return out
 
     def model_copy(self, update: dict | None = None) -> "Settings":
         """A copy with ``update`` applied (the pydantic method's contract)."""

@@ -17,6 +17,14 @@ pixels per byte; 8 the map in uint8. Pages whose skew lies in
 [MIN_DESKEW_DEG, MAX_DESKEW_DEG] are rotated on the host and the batch runs
 again in the same mode. The gray canvases stay on the device for the
 recognizer (``DetResult.canvas_stack``).
+
+Under a mesh with dp > 1 (``core.mesh.engine_mesh``: the one set by
+``mesh_context``, else the card's default; a CPU engine with no mesh set
+runs unsharded) each bucket batch is padded to a multiple of dp with white
+canvases and split over the dp devices, and each device runs the wire
+unpack, the skew estimate, the enhance kernel, DBNet and the component
+statistics on its own pages; the canvases stay split
+(``core.mesh.ShardedBatch``) for the recognizer.
 """
 
 from __future__ import annotations
@@ -29,6 +37,16 @@ import torch.nn.functional as F
 
 from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.core.dtypes import DTypePolicy, resolve_device
+from ocr_system_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    Mesh,
+    ShardedBatch,
+    all_gather,
+    engine_mesh,
+    pad_to_multiple,
+    shard_batch,
+    shard_scope,
+)
 from ocr_system_tpu_torch.core.weights import load_weights
 from ocr_system_tpu_torch.engine.host_image import (
     resize_linear,
@@ -46,6 +64,7 @@ from ocr_system_tpu_torch.ops.boxes import (
 )
 from ocr_system_tpu_torch.ops.device_boxes import component_stats
 from ocr_system_tpu_torch.ops.sampling import quads_are_axis_aligned
+from ocr_system_tpu_torch.parallel.sharding import replicas
 
 PROB_STRIDE = 2  # prob map downsample before the host transfer
 SCORE_STRIDE = 4  # the pooled score map's stride (det_prob_wire_bits=1)
@@ -65,7 +84,8 @@ class DetResult:
     # None under 0 (only statistics come back)
     prob_map: np.ndarray | None = None
     # device-canvas handoff to the rec stage (skips a second page upload)
-    canvas_stack: torch.Tensor | None = None  # (B, S, S) uint8 gray, on device
+    # (B, S, S) uint8 gray, on the device (split over dp under a mesh)
+    canvas_stack: torch.Tensor | ShardedBatch | None = None
     canvas_row: int = -1  # this page's row in canvas_stack
     canvas_scale: float = 1.0  # page coords * scale -> canvas coords
     # the page's (H, W) uint8 luma, computed once for every host pass
@@ -111,29 +131,50 @@ class Detector:
             img = image_ops.adaptive_binarize(img)
         return image_ops.normalize_for_model(img).permute(2, 0, 1)
 
+    def _forward(self, packed: np.ndarray) -> dict:
+        """Host wire batch (B pages) -> the device outputs of
+        det_prob_wire_bits (``_forward_device``) for the B pages; under a dp
+        mesh each dp device runs its share, and "canvas" is the split
+        stack (pad pages included, as the JAX detector's)."""
+        packed, n_real = self._pad_for_dp(packed)
+        packed = torch.from_numpy(packed)
+        mesh = self._mesh()
+        if mesh is None:
+            out = self._forward_device(packed.to(self.device), self.model)
+        else:
+            models = replicas(self.model, mesh)
+            outs = []
+            for i, shard in enumerate(shard_batch(mesh, packed)):
+                with shard_scope(**{DATA_AXIS: i}):
+                    outs.append(self._forward_device(shard, models[i]))
+            out = {k: all_gather([o[k] for o in outs], device=self.device)
+                   for k in outs[0] if k != "canvas"}
+            out["canvas"] = ShardedBatch([o["canvas"] for o in outs], mesh)
+        return {k: v if k == "canvas" else v[:n_real] for k, v in out.items()}
+
     @torch.inference_mode()
-    def _forward(self, packed: np.ndarray) -> dict[str, torch.Tensor]:
-        """Host wire batch -> the device outputs of det_prob_wire_bits
-        (module doc): "angles" and "canvas" (the gray u8 canvases) always;
-        "stats", "n_comps" and the packed 16-level "prob" under 0; the
-        bitpacked "prob" and packed "score" under 1; the packed "prob"
-        under 4; the u8 "prob" under 8."""
+    def _forward_device(self, packed: torch.Tensor, model: DBNet) -> dict[str, torch.Tensor]:
+        """Wire batch on a device -> the device outputs of
+        det_prob_wire_bits (module doc): "angles" and "canvas" (the gray u8
+        canvases) always; "stats", "n_comps" and the packed 16-level "prob"
+        under 0; the bitpacked "prob" and packed "score" under 1; the packed
+        "prob" under 4; the u8 "prob" under 8."""
         s = self.settings
-        gray_u8 = unpack_wire(torch.from_numpy(packed).to(self.device), s.det_wire_bits)
+        gray_u8 = unpack_wire(packed, s.det_wire_bits)
         f = to_unit(gray_u8)
         if s.enable_deskew:
             angles = image_ops.estimate_skew_angle(f)
         else:
-            angles = torch.zeros(f.shape[0], device=self.device)
+            angles = torch.zeros(f.shape[0], device=f.device)
         if self.use_kernel:
             # the kernel reads the u8 canvas and writes the compute dtype
-            x_in = enhance_gray(gray_u8, gray_means(gray_u8), self.model.policy.compute_dtype)
+            x_in = enhance_gray(gray_u8, gray_means(gray_u8), model.policy.compute_dtype)
         else:
             # contrast off or binarization on: the JAX detector composes the
             # steps in plain ops and runs no Pallas kernel, so the port runs
             # no kernel here either
             x_in = torch.stack([self._preprocess(img) for img in f])
-        prob = self.model.forward_nchw(x_in)
+        prob = model.forward_nchw(x_in)
         prob_ds = F.avg_pool2d(prob[:, None], PROB_STRIDE)[:, 0]
         out = {"angles": angles, "canvas": gray_u8}
         mode = s.det_prob_wire_bits
@@ -268,6 +309,30 @@ class Detector:
             gray=gray_page,
             cc=cc,
         )
+
+    # ---- dp sharding ----
+
+    def _mesh(self) -> Mesh | None:
+        """The serving mesh when it has dp > 1, else None; resolved at first
+        use, as the JAX detector's."""
+        if not hasattr(self, "_mesh_cache"):
+            mesh = engine_mesh(self.device)
+            self._mesh_cache = mesh if mesh is not None and mesh.shape.get(DATA_AXIS, 1) > 1 \
+                else None
+        return self._mesh_cache
+
+    def _pad_for_dp(self, batch: np.ndarray) -> tuple[np.ndarray, int]:
+        """Pad the wire batch to a multiple of the dp axis so it splits
+        evenly; padded pages are white canvases (255 bytes are white at
+        every wire width), sliced off after."""
+        mesh = self._mesh()
+        n = batch.shape[0]
+        if mesh is None:
+            return batch, n
+        pad = pad_to_multiple(n, mesh.shape[DATA_AXIS]) - n
+        if pad:
+            batch = np.concatenate([batch, np.full((pad, *batch.shape[1:]), 255, batch.dtype)])
+        return batch, n
 
     def _pack_wire(self, batch: np.ndarray) -> np.ndarray:
         """Pack the (B, S, S) u8 canvases along W to det_wire_bits: two

@@ -7,7 +7,10 @@ on the device: axis-aligned quads through the crop kernel
 (ops/sampling.crop_quads). There is no box-height bound on the kernel, so
 every axis-aligned quad takes it (the JAX package's non-TPU split). Crops
 are grouped by width bucket and count-padded as in the reference; every
-group's device work is queued before any result is fetched.
+group's device work is queued before any result is fetched. From a stack
+split over dp (``core.mesh.ShardedBatch``, the det stage's under a mesh)
+each dp device crops, recognizes and decodes its own pages, and, as in the
+JAX package, a split stack is never compacted.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.core.dtypes import DTypePolicy, resolve_device
+from ocr_system_tpu_torch.core.mesh import DATA_AXIS, ShardedBatch, all_gather, shard_scope
 from ocr_system_tpu_torch.core.weights import load_weights
 from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
 from ocr_system_tpu_torch.kernels.crop import crop_boxes
@@ -31,6 +35,7 @@ from ocr_system_tpu_torch.ops.sampling import (
     crop_quads,
     quads_to_aabbs,
 )
+from ocr_system_tpu_torch.parallel.sharding import replicas
 
 
 @dataclass
@@ -83,16 +88,18 @@ class Recognizer:
             self._rec_on_stack(stack_dev, row_targets, row_quads, results)
         return _fill(results)
 
-    def recognize_on_device_stack(self, stack_dev: torch.Tensor,
+    def recognize_on_device_stack(self, stack_dev: torch.Tensor | ShardedBatch,
                                   quads_list: list[np.ndarray]) -> list[list[RecResult]]:
         """Crops decode straight from a device-resident gray uint8 page stack
-        (P, S, S), the det stage's canvases. quads_list: one (N, 4, 2) array
-        per stack row, in canvas coords."""
+        (P, S, S), the det stage's canvases, whole or split over dp.
+        quads_list: one (N, 4, 2) array per stack row, in canvas coords."""
         results: list[list[RecResult | None]] = [[None] * len(q) for q in quads_list]
         page_idxs = [i for i, q in enumerate(quads_list) if len(q) > 0]
         if page_idxs:
             n_rows = stack_dev.shape[0]
-            if len(page_idxs) > n_rows // 2:
+            # a split stack is never compacted: its rows stay on their
+            # devices (the JAX package's rule for a dp-sharded stack)
+            if isinstance(stack_dev, ShardedBatch) or len(page_idxs) > n_rows // 2:
                 row_targets = [i if len(q) > 0 else -1 for i, q in enumerate(quads_list)]
                 row_quads = list(quads_list)
             else:
@@ -110,27 +117,45 @@ class Recognizer:
             self._rec_on_stack(stack_dev, row_targets, row_quads, results)
         return _fill(results)
 
-    @torch.inference_mode()
-    def _run(self, stack_dev: torch.Tensor, quads: np.ndarray, w_valid: np.ndarray,
-             bucket: int, axis_aligned: bool, rows: list[int]):
+    def _run(self, stack_dev: torch.Tensor | ShardedBatch, quads: np.ndarray,
+             w_valid: np.ndarray, bucket: int, axis_aligned: bool, rows: list[int]):
         """One bucket group: (P, N, 4, 2) quads -> device (ids, conf).
         ``rows``: the stack rows that hold this group's quads (the others
-        carry only padding crops, whose results are dropped)."""
+        carry only padding crops, whose results are dropped). A split stack
+        runs each dp shard's rows on its device."""
+        if not isinstance(stack_dev, ShardedBatch):
+            return self._run_device(self.model, stack_dev, quads, w_valid, bucket,
+                                    axis_aligned, rows)
+        models = replicas(self.model, stack_dev.mesh)
+        r = stack_dev.rows_per_shard
+        outs = []
+        for i, shard in enumerate(stack_dev.shards):
+            lo = i * r
+            with shard_scope(**{DATA_AXIS: i}):
+                outs.append(self._run_device(
+                    models[i], shard, quads[lo:lo + r], w_valid[lo:lo + r], bucket,
+                    axis_aligned, [k - lo for k in rows if lo <= k < lo + r]))
+        return tuple(all_gather([o[j] for o in outs], device=self.device) for j in range(2))
+
+    @torch.inference_mode()
+    def _run_device(self, model: SVTRRecognizer, stack_dev: torch.Tensor, quads: np.ndarray,
+                    w_valid: np.ndarray, bucket: int, axis_aligned: bool, rows: list[int]):
+        """``_run`` on one device's stack."""
         h = self.settings.rec_image_height
+        dev = stack_dev.device
         n_pages, n_per_page = w_valid.shape
-        widths = torch.from_numpy(w_valid).to(self.device)
+        widths = torch.from_numpy(w_valid).to(dev)
         if axis_aligned:
             aabbs = quads_to_aabbs(quads.reshape(-1, 4, 2)).reshape(n_pages, n_per_page, 4)
             # the kernel folds /255, the pad mask and the cast to the
             # compute dtype into the crop
-            crops = crop_boxes(stack_dev, torch.from_numpy(aabbs).to(self.device),
-                               widths, (h, bucket), self.model.policy.compute_dtype)
+            crops = crop_boxes(stack_dev, torch.from_numpy(aabbs).to(dev),
+                               widths, (h, bucket), model.policy.compute_dtype)
         else:
-            crops = quad_crops(stack_dev, torch.from_numpy(quads).to(self.device),
-                               rows, (h, bucket))
+            crops = quad_crops(stack_dev, torch.from_numpy(quads).to(dev), rows, (h, bucket))
             crops = _mask_pad(crops, widths.reshape(-1))
         crops = crops[:, None].expand(-1, 3, -1, -1)
-        logits, lengths = self.model.forward_nchw(crops, widths.reshape(-1))
+        logits, lengths = model.forward_nchw(crops, widths.reshape(-1))
         ids, conf, _ = ctc.ctc_greedy_decode(logits, lengths)
         return ids, conf
 

@@ -25,6 +25,7 @@ import torch
 
 from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.core.dtypes import DTypePolicy, resolve_device
+from ocr_system_tpu_torch.core.mesh import engine_mesh
 from ocr_system_tpu_torch.core.weights import load_npz
 from ocr_system_tpu_torch.extract.directives import (
     Directives,
@@ -502,11 +503,16 @@ class LayoutModelExtractor:
             self.settings.compute_dtype, self.settings.param_dtype
         ).compute_dtype
         self.max_len = 2048
+        # an sp mesh axis > 1 -> serve with in-model ring attention (the
+        # sequence shards over the ring; the power-of-two token buckets
+        # divide over it)
+        mesh = engine_mesh(self.device)
         self.model = LayoutExtractor(
             vocab_size=self.charset.size,
             dim=self.settings.extract_dim,
             depth=self.settings.extract_depth,
             max_len=self.max_len,
+            sequence_parallel=mesh is not None and mesh.shape.get("sp", 1) > 1,
         )
         if state_dict is None:
             path = Path(self.settings.extract_checkpoint or WEIGHTS)

@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from ocr_system_tpu_torch.core.mesh import DATA_AXIS, shard_coords
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -44,19 +46,25 @@ _SIGNATURES = {
 
 class LaunchCounter:
     """Launches of one kernel, counted where its wrapper launches it (the
-    scheduler's det worker and the main thread both launch)."""
+    scheduler's det worker and the main thread both launch); ``by_shard``
+    splits them by the dp shard that launched (``core.mesh.shard_scope``;
+    -1 outside one)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.value = 0
+        self.by_shard: dict[int, int] = {}
 
     def add(self) -> None:
+        shard = shard_coords().get(DATA_AXIS, -1)
         with self._lock:
             self.value += 1
+            self.by_shard[shard] = self.by_shard.get(shard, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+            self.by_shard = {}
 
 
 def _nvcc() -> str:

@@ -97,11 +97,12 @@ def crop_boxes(pages: torch.Tensor, aabbs: torch.Tensor, w_valid: torch.Tensor,
     out = torch.empty((p * n, h_out, w_out), dtype=out_dtype, device=pages.device)
     if p * n == 0:
         return out
-    rc = _build.library().ocr_crop(
-        pages.data_ptr(), aabbs.data_ptr(), w_valid.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), p * n, n, rows, cols, h_out, w_out,
-        torch.cuda.current_stream(pages.device).cuda_stream,
-    )
+    with torch.cuda.device(pages.device):  # the launch goes to the current card
+        rc = _build.library().ocr_crop(
+            pages.data_ptr(), aabbs.data_ptr(), w_valid.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), p * n, n, rows, cols, h_out, w_out,
+            torch.cuda.current_stream(pages.device).cuda_stream,
+        )
     _build.check(rc, "crop")
     LAUNCHES.add()
     return out

@@ -107,13 +107,14 @@ def _launch(inp: torch.Tensor, out: torch.Tensor, means: torch.Tensor, planes: i
     lib = _build.library()
     arr5, arr3 = ctypes.c_float * 5, ctypes.c_float * 3
     g, nm, ns = arr5(*gauss5()), arr3(*NORM_MEAN), arr3(*NORM_STD)
-    rc = lib.ocr_enhance(
-        inp.data_ptr(), int(inp.dtype == torch.uint8), out.data_ptr(),
-        int(out.dtype == torch.bfloat16), means.data_ptr(), planes,
-        inp.shape[-2], inp.shape[-1], contrast, sharpness,
-        ctypes.addressof(g), ctypes.addressof(nm), ctypes.addressof(ns),
-        torch.cuda.current_stream(inp.device).cuda_stream,
-    )
+    with torch.cuda.device(inp.device):  # the launch goes to the current card
+        rc = lib.ocr_enhance(
+            inp.data_ptr(), int(inp.dtype == torch.uint8), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), means.data_ptr(), planes,
+            inp.shape[-2], inp.shape[-1], contrast, sharpness,
+            ctypes.addressof(g), ctypes.addressof(nm), ctypes.addressof(ns),
+            torch.cuda.current_stream(inp.device).cuda_stream,
+        )
     _build.check(rc, "enhance")
     LAUNCHES.add()
 

@@ -76,19 +76,32 @@ def db_loss(outputs: dict, gt_shrink: torch.Tensor, gt_shrink_mask: torch.Tensor
             gt_thresh: torch.Tensor, gt_thresh_mask: torch.Tensor) -> torch.Tensor:
     """DB training loss: BCE(prob) + L1(thresh) + dice(binary), weights
     1/10/5 per the paper, eps 1e-6. All inputs (B, H, W) float32."""
+    return db_loss_finish(db_loss_terms(outputs, gt_shrink, gt_shrink_mask, gt_thresh,
+                                        gt_thresh_mask))
+
+
+def db_loss_terms(outputs: dict, gt_shrink: torch.Tensor, gt_shrink_mask: torch.Tensor,
+                  gt_thresh: torch.Tensor, gt_thresh_mask: torch.Tensor) -> dict:
+    """The sums ``db_loss`` divides: summed over the shards of a dp batch,
+    they give the global batch's loss (``db_loss_finish``)."""
     eps = 1e-6
     prob, thresh, binary = outputs["prob"], outputs["thresh"], outputs["binary"]
-
     # balanced BCE on the shrink map (the reference masks and normalises
     # instead of mining negatives 3:1)
     bce = -(gt_shrink * torch.log(prob + eps)
             + (1 - gt_shrink) * torch.log(1 - prob + eps))
-    bce = (bce * gt_shrink_mask).sum() / (gt_shrink_mask.sum() + eps)
+    return {
+        "bce": (bce * gt_shrink_mask).sum(), "shrink_mask": gt_shrink_mask.sum(),
+        "l1": ((thresh - gt_thresh).abs() * gt_thresh_mask).sum(),
+        "thresh_mask": gt_thresh_mask.sum(),
+        "inter": (binary * gt_shrink * gt_shrink_mask).sum(),
+        "union": (binary * gt_shrink_mask).sum() + (gt_shrink * gt_shrink_mask).sum(),
+    }
 
-    l1 = ((thresh - gt_thresh).abs() * gt_thresh_mask).sum() / (gt_thresh_mask.sum() + eps)
 
-    inter = (binary * gt_shrink * gt_shrink_mask).sum()
-    union = (binary * gt_shrink_mask).sum() + (gt_shrink * gt_shrink_mask).sum()
-    dice = 1.0 - 2.0 * inter / (union + eps)
-
+def db_loss_finish(t: dict) -> torch.Tensor:
+    eps = 1e-6
+    bce = t["bce"] / (t["shrink_mask"] + eps)
+    l1 = t["l1"] / (t["thresh_mask"] + eps)
+    dice = 1.0 - 2.0 * t["inter"] / (t["union"] + eps)
     return bce + 10.0 * l1 + 5.0 * dice

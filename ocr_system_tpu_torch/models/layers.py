@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ocr_system_tpu_torch.core.dtypes import widen
+from ocr_system_tpu_torch.core.mesh import DATA_AXIS, axis_index, axis_psum, axis_size
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -61,8 +62,12 @@ class BatchNorm(nn.Module):
     variance as E[x^2] - E[x]^2 clipped at 0 (flax's ``use_fast_variance``),
     and moves the running ones to ``momentum * running + (1 - momentum) *
     batch`` with that biased variance (``nn.BatchNorm2d`` would use momentum
-    the other way round and the unbiased variance). Names follow
-    ``nn.BatchNorm2d``."""
+    the other way round and the unbiased variance). Under a dp-sharded step
+    (``core.mesh.run_sharded`` over dp) the batch statistics are the global
+    batch's, as flax's BatchNorm computes them under ``jit`` over a
+    dp-sharded batch: each shard's sum and sum of squares are summed over
+    the shards (``axis_psum``), and the first shard moves the running
+    statistics. Names follow ``nn.BatchNorm2d``."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
@@ -78,12 +83,18 @@ class BatchNorm(nn.Module):
         xf = widen(x)
         if train:
             dims = [0, *range(2, x.dim())]
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if axis_size(DATA_AXIS) == 1:
+                mean, sq = xf.mean(dims), xf.square().mean(dims)
+            else:
+                count = axis_psum(torch.tensor(float(x.numel() // x.shape[1])), DATA_AXIS)
+                sums = axis_psum(torch.stack([xf.sum(dims), xf.square().sum(dims)]), DATA_AXIS)
+                mean, sq = sums / count.to(sums)
+            var = (sq - mean.square()).clamp_min(0.0)
+            if axis_index(DATA_AXIS) == 0:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -92,7 +103,19 @@ class BatchNorm(nn.Module):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in the activation's dtype (flax ``Dense``)."""
+    """``nn.Linear`` computing in the activation's dtype (flax ``Dense``).
+    ``axes``: the logical axes of the flax kernel, ``(in, out)``, for
+    ``parallel.sharding`` (None: unannotated, replicated); ``shard_groups``:
+    the number of fused outputs (3 for q, k, v) that split over tp each on
+    its own, in whole ``shard_unit``s (a head's features)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 axes: tuple[str, str] | None = None, shard_groups: int = 1,
+                 shard_unit: int = 1):
+        super().__init__(in_features, out_features, bias)
+        self.axes = axes
+        self.shard_groups = shard_groups
+        self.shard_unit = shard_unit
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

@@ -14,9 +14,14 @@ take a -1e9 mask bias in their own dtype, the MLP uses the tanh GELU
 (flax ``nn.gelu``), and the heads' outputs are cast to float32. The
 embeddings add left to right, ``((tok + c0) + c1) + c2 + c3 + pos``, which
 matters in bf16. Attention is plain PyTorch (the JAX package computes it
-in plain XLA, outside any Pallas kernel). Sequence-parallel ring attention
-is not ported. Training slides each sample's window of the position table
-(``pos_offset``) and minimises ``extraction_loss``.
+in plain XLA, outside any Pallas kernel); with ``sequence_parallel`` a block
+serves exact ring attention over the current mesh's ``sp`` axis
+(``parallel/ring_attention``). Every weight carries the JAX module's
+logical axes (``Dense.axes``, ``PARAM_AXES``), so ``parallel.sharding.
+shard_params`` can split the mlp and heads dimensions over ``tp``; a block
+with sharded weights computes the same function on its tp devices.
+Training slides each sample's window of the position table (``pos_offset``)
+and minimises ``extraction_loss``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ocr_system_tpu_torch.core.dtypes import widen
+from ocr_system_tpu_torch.core.mesh import TENSOR_AXIS, get_mesh
 from ocr_system_tpu_torch.models.layers import Dense, LayerNorm, init_flax_, init_random_
 from ocr_system_tpu_torch.service.validation import FieldType
 
@@ -44,38 +50,88 @@ COORD_BUCKETS = 1024  # quantized page coords 0..1023
 MASK_BIAS = -1e9
 
 
-class Block(nn.Module):
-    """Pre-norm transformer block: fused-QKV attention, then a GELU MLP."""
+class _Embedding(nn.Embedding):
+    PARAM_AXES = {"weight": ("vocab", "embed")}
 
-    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4):
+
+def _attention(q, k, v, bias: torch.Tensor) -> torch.Tensor:
+    """Softmax attention with an additive mask bias: q, k, v (b, t, h, hd)
+    -> (b, t, h, hd), computed head-major."""
+    q, k, v = (z.transpose(1, 2) for z in (q, k, v))
+    logits = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    attn = torch.softmax(logits + bias, dim=-1)
+    return torch.matmul(attn, v).transpose(1, 2)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block: fused-QKV attention, then a GELU MLP.
+    ``sequence_parallel``: ring attention over the current mesh's ``sp``
+    axis (the sequence length must divide over it)."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.heads = heads
+        self.sequence_parallel = sequence_parallel
         self.norm1 = LayerNorm(dim)
-        self.qkv = Dense(dim, 3 * dim)
-        self.proj = Dense(dim, dim)
+        # the fused kernel's q, k and v each split over tp by whole heads
+        self.qkv = Dense(dim, 3 * dim, axes=("embed", "heads"), shard_groups=3,
+                         shard_unit=dim // heads)
+        self.proj = Dense(dim, dim, axes=("heads", "embed"))
         self.norm2 = LayerNorm(dim)
-        self.up = Dense(dim, dim * mlp_ratio)
-        self.down = Dense(dim * mlp_ratio, dim)
+        self.up = Dense(dim, dim * mlp_ratio, axes=("embed", "mlp"))
+        self.down = Dense(dim * mlp_ratio, dim, axes=("mlp", "embed"))
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x (b, t, d); bias: the (b, 1, 1, t) additive mask of the dense
+        path; mask: (b, t) bool, ring attention's."""
+        from ocr_system_tpu_torch.parallel.sharding import ShardedDense
+
+        if isinstance(self.qkv, ShardedDense):
+            return self._forward_tp(x, bias)
         b, t, d = x.shape
         h = self.heads
-        hd = d // h
-        # the fused product splits into q, k, v, each head-major: (b, h, t, hd)
-        q, k, v = (
-            z.reshape(b, t, h, hd).transpose(1, 2)
-            for z in self.qkv(self.norm1(x)).split(d, dim=-1)
-        )
-        logits = torch.matmul(q, k.transpose(-1, -2)) * hd**-0.5
-        attn = torch.softmax(logits + bias, dim=-1)
-        y = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, d)
-        x = x + self.proj(y)
+        q, k, v = (z.reshape(b, t, h, d // h) for z in self.qkv(self.norm1(x)).split(d, dim=-1))
+        if self.sequence_parallel:
+            from ocr_system_tpu_torch.parallel.ring_attention import ring_attention
+
+            y = ring_attention(q, k, v, mask, get_mesh())
+        else:
+            y = _attention(q, k, v, bias)
+        x = x + self.proj(y.reshape(b, t, d))
         y = self.up(self.norm2(x))
         y = self.down(F.gelu(y, approximate="tanh"))
         return x + y
 
+    def _forward_tp(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The block with its weights split over tp: each tp device computes
+        its heads' attention and its slice of the MLP; the row-parallel
+        ``proj`` and ``down`` sum over tp. Activations live on x's device,
+        the first of the shard's tp devices."""
+        if self.sequence_parallel:
+            raise ValueError("a tp-sharded block serves no ring attention")
+        b, t, d = x.shape
+        devs = self.qkv.mesh.axis_devices(TENSOR_AXIS)
+        h, dl = self.heads // len(devs), d // len(devs)
+        y1 = self.norm1(x)
+        parts = []
+        for j, dev in enumerate(devs):
+            qkv = self.qkv.shard_forward(j, y1.to(dev))
+            q, k, v = (z.reshape(b, t, h, dl // h) for z in qkv.split(dl, dim=-1))
+            y = _attention(q, k, v, bias.to(dev)).reshape(b, t, dl)
+            parts.append(self.proj.shard_forward(j, y))
+        x = x + self.proj.reduce(parts, x.device)
+        y2 = self.norm2(x)
+        parts = [self.down.shard_forward(j, F.gelu(self.up.shard_forward(j, y2.to(dev)),
+                                                   approximate="tanh"))
+                 for j, dev in enumerate(devs)]
+        return x + self.down.reduce(parts, x.device)
+
 
 class LayoutExtractor(nn.Module):
+    # the logical axes of the parameters that are not a Dense's
+    PARAM_AXES = {"pos_embed": (None, None, "embed")}
+
     def __init__(
         self,
         vocab_size: int,
@@ -86,21 +142,18 @@ class LayoutExtractor(nn.Module):
         sequence_parallel: bool = False,
     ):
         super().__init__()
-        if sequence_parallel:
-            raise ValueError(
-                "sequence-parallel (ring) attention is not ported; the port "
-                "serves long documents through the page-chunk path"
-            )
         self.max_len = max_len
-        self.tok_embed = nn.Embedding(vocab_size, dim)
-        self.coord_embed = nn.Embedding(COORD_BUCKETS, dim)
+        self.sequence_parallel = sequence_parallel
+        self.tok_embed = _Embedding(vocab_size, dim)
+        self.coord_embed = _Embedding(COORD_BUCKETS, dim)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, dim))
-        self.blocks = nn.ModuleList(Block(dim, heads) for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            Block(dim, heads, sequence_parallel=sequence_parallel) for _ in range(depth))
         self.norm = LayerNorm(dim)
-        self.tag_head = Dense(dim, NUM_TAGS)
-        self.type_head = Dense(dim, NUM_FIELD_TYPES)
-        self.conf_head = Dense(dim, 1)
-        self.form_head = Dense(dim, NUM_FORM_TYPES)
+        self.tag_head = Dense(dim, NUM_TAGS, axes=("embed", "tags"))
+        self.type_head = Dense(dim, NUM_FIELD_TYPES, axes=("embed", "types"))
+        self.conf_head = Dense(dim, 1, axes=("embed", "one"))
+        self.form_head = Dense(dim, NUM_FORM_TYPES, axes=("embed", "forms"))
 
     def init_random_(self, generator: torch.Generator) -> "LayoutExtractor":
         """Seeded random weights: LeCun-normal Dense kernels, zero biases,
@@ -163,7 +216,7 @@ class LayoutExtractor(nn.Module):
         bias = torch.zeros(mask.shape, dtype=dtype, device=x.device).masked_fill(
             ~mask, MASK_BIAS)[:, None, None, :]
         for blk in self.blocks:
-            x = blk(x, bias)
+            x = blk(x, bias, mask)
         x = self.norm(x)
 
         conf = torch.sigmoid(self.conf_head(x))[..., 0]
@@ -182,15 +235,32 @@ def extraction_loss(outputs: dict, tags: torch.Tensor, types: torch.Tensor,
                     form: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Token-tag CE + token-type CE (on non-O tokens) + 0.2 x form CE.
     tags/types: (B, L) int labels; form: (B,) int; mask: (B, L)."""
+    return extraction_loss_finish(extraction_loss_terms(outputs, tags, types, form, mask),
+                                  form.shape[0])
+
+
+def extraction_loss_terms(outputs: dict, tags: torch.Tensor, types: torch.Tensor,
+                          form: torch.Tensor, mask: torch.Tensor) -> dict:
+    """The sums ``extraction_loss`` divides: each cross-entropy is a masked
+    mean over the whole batch, so a dp batch sums these over its shards
+    before ``extraction_loss_finish`` (a mean of the shards' means would
+    weigh a shard by its sample count, not its tokens)."""
     mask = mask.float()
+    typed = mask * (tags > 0)
 
-    def ce(logits, labels, m):
+    def nll(logits, labels):
         logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
-        return (nll * m).sum() / m.sum().clamp_min(1.0)
+        return -logp.gather(-1, labels.long()[..., None])[..., 0]
 
-    tag_loss = ce(outputs["tag_logits"], tags, mask)
-    type_loss = ce(outputs["type_logits"], types, mask * (tags > 0))
-    logp = torch.log_softmax(outputs["form_logits"], dim=-1)
-    form_loss = -logp.gather(-1, form.long()[:, None]).mean()
-    return tag_loss + type_loss + 0.2 * form_loss
+    return {
+        "tag": (nll(outputs["tag_logits"], tags) * mask).sum(), "tag_n": mask.sum(),
+        "type": (nll(outputs["type_logits"], types) * typed).sum(), "type_n": typed.sum(),
+        "form": nll(outputs["form_logits"], form).sum(),
+    }
+
+
+def extraction_loss_finish(t: dict, batch: int) -> torch.Tensor:
+    """``extraction_loss`` from its (summed) terms and the global batch."""
+    tag_loss = t["tag"] / t["tag_n"].clamp_min(1.0)
+    type_loss = t["type"] / t["type_n"].clamp_min(1.0)
+    return tag_loss + type_loss + 0.2 * (t["form"] / batch)

@@ -107,15 +107,29 @@ def ctc_loss(
     blank_id: int = BLANK_ID,
     log_epsilon: float = LOG_EPSILON,
 ) -> torch.Tensor:
-    """Mean over the batch of each line's CTC loss, -log p(labels | logits).
+    """Mean over the batch of each line's CTC loss, -log p(labels | logits)
+    (``ctc_line_losses``): the mean is over lines, not divided by the label
+    lengths as ``F.ctc_loss(reduction="mean")`` is."""
+    return ctc_line_losses(logits, logit_lengths, labels, label_lengths, blank_id,
+                           log_epsilon).mean()
+
+
+def ctc_line_losses(
+    logits: torch.Tensor,
+    logit_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank_id: int = BLANK_ID,
+    log_epsilon: float = LOG_EPSILON,
+) -> torch.Tensor:
+    """Each line's CTC loss, -log p(labels | logits), as a (B,) tensor.
 
     logits (B, T, V); logit_lengths (B,) valid steps; labels (B, N) padded
     on the right; label_lengths (B,). The forward recursion of
     ``optax.ctc_loss`` written out step by step in PyTorch, so values and
     gradients are optax's: log(0) is floored at ``log_epsilon``, which keeps
     an infeasible line (more labels and repeats than steps) finite where
-    ``F.ctc_loss`` gives inf, and the mean is over lines, not divided by
-    the label lengths as ``F.ctc_loss(reduction="mean")`` is."""
+    ``F.ctc_loss`` gives inf."""
     b, t, _ = logits.shape
     n = labels.shape[1]
     logprobs = torch.log_softmax(widen(logits), dim=-1)
@@ -146,5 +160,4 @@ def ctc_loss(
         emit = p * emit + (1.0 - p) * next_emit
         phi = p * prev_phi_orig + (1.0 - p) * next_phi
     phi = add_to_phi(phi, emit)  # the last epsilon transition
-    per_seq = -phi.gather(1, label_lengths.long().to(logits.device)[:, None])[:, 0]
-    return per_seq.mean()
+    return -phi.gather(1, label_lengths.long().to(logits.device)[:, None])[:, 0]

@@ -10,13 +10,23 @@ ocr_system_tpu/training/train.py), on one device:
 A ``TrainState`` holds the model (parameters and BatchNorm statistics),
 its optimizer (optax's ``chain(clip_by_global_norm(1.0), adamw(lr,
 weight_decay=1e-4))``: ``clip_by_global_norm_`` and ``AdamW``) and the step
-count. Each ``make_*_train_step``
+count. Each ``make_*_train_step(..., mesh)``
 returns ``step(state, batch) -> (state, metrics)``: one forward, backward
 and update, its metrics left on the device (a ``float()`` per step would
 wait for the device every step; the drivers read them at log points).
 Batches are the iterators' numpy dicts moved to the device by
-``to_device``. The JAX package's mesh (dp over the batch, tp for the layout
-model) has no counterpart on one card; the trainers take no mesh.
+``to_device``.
+
+The mesh (core/mesh.py) is the JAX package's: the batch splits over ``dp``
+and the step keeps the global batch's semantics, as JAX's jitted step over
+a dp-sharded batch does. The shards run in lockstep (``run_sharded``): the
+BatchNorms normalise with the global batch's statistics, and each loss is
+summed over the shards as its terms (masked sums and counts) before it is
+divided, so masked means are over the global mask. The gradients of every
+shard reach the one set of parameters (the dp psum). The layout trainer
+also splits the 512 x 8 model's mlp and heads dimensions over ``tp``
+(``init_layout_state_sharded``). Without a mesh, the trainers take
+``shd_default_mesh``: ``dp=-1`` over the trainer's device.
 """
 
 from __future__ import annotations
@@ -33,10 +43,20 @@ import torch
 from torch import nn
 
 from ocr_system_tpu_torch.core.dtypes import DTypePolicy, default_policy, resolve_device, widen
+from ocr_system_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    Mesh,
+    axis_index,
+    build_mesh,
+    reduce_to,
+    run_sharded,
+    shard_batch,
+)
 from ocr_system_tpu_torch.kernels.enhance import to_unit
 from ocr_system_tpu_torch.models.charsets import Charset, get_charset
-from ocr_system_tpu_torch.ops.ctc import ctc_loss
+from ocr_system_tpu_torch.ops.ctc import ctc_line_losses
 from ocr_system_tpu_torch.ops.image_ops import NORM_MEAN, NORM_STD
+from ocr_system_tpu_torch.parallel.sharding import reduce_replica_grads, replicas
 from ocr_system_tpu_torch.training import synth
 
 logger = logging.getLogger(__name__)
@@ -116,12 +136,17 @@ def clip_by_global_norm_(params, max_norm: float = MAX_GRAD_NORM) -> torch.Tenso
     norm`` when their global norm, the square root of the summed squares,
     is at least ``max_norm`` (optax adds nothing to the norm;
     ``nn.utils.clip_grad_norm_`` adds 1e-6). Returns the norm before
-    clipping, on the device, without waiting for it."""
+    clipping, on the device, without waiting for it.
+    ``params`` may live on several devices (tp slices): each parameter,
+    replicated or a slice, counts once, and the norm is computed on the
+    first one's device."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.stack([widen(g).square().sum() for g in grads]).sum().sqrt()
+    dev = grads[0].device
+    norm = torch.stack([widen(g).square().sum().to(dev) for g in grads]).sum().sqrt()
     # optax computes (g / norm) * max_norm; the branch stays on the device
     scale = torch.where(norm < max_norm, torch.ones_like(norm), norm / max_norm)
-    torch._foreach_div_(grads, scale)
+    for d in dict.fromkeys(g.device for g in grads):
+        torch._foreach_div_([g for g in grads if g.device == d], scale.to(d))
     return norm
 
 
@@ -151,14 +176,48 @@ def to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> dict:
     return {k: v if k in HOST_KEYS else put(v) for k, v in batch.items()}
 
 
-def _train_step(loss_fn: Callable) -> Callable:
-    """``loss_fn(model, batch) -> (loss, metrics)`` made into a step: the
-    gradients, the clip, the AdamW update."""
+def shd_default_mesh(device: str | torch.device | None = None, spec: str = "dp=-1") -> Mesh:
+    """The trainers' default mesh, ``spec`` over the trainer's device:
+    every visible card for ``cuda`` without an index (JAX's every device),
+    else that one device."""
+    dev = resolve_device(device)
+    return build_mesh(spec, None if dev.type == "cuda" and dev.index is None else [dev])
+
+
+def sharded_terms(models: list[nn.Module], batch: dict, terms_fn: Callable,
+                  mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """``terms_fn(model, batch) -> {name: partial sum}`` over the batch
+    split along dp, the shards in lockstep, shard i running ``models[i]``
+    (``parallel.sharding.replicas``), each term summed over the shards on
+    the mesh's first device (the model's)."""
+    if mesh is None:
+        return terms_fn(models[0], batch)
+    host = {k: v for k, v in batch.items() if k in HOST_KEYS}
+    shards = shard_batch(mesh, {k: v for k, v in batch.items() if k not in HOST_KEYS})
+    parts = run_sharded(mesh, DATA_AXIS,
+                        lambda shard: terms_fn(models[axis_index(DATA_AXIS)], {**shard, **host}),
+                        shards)
+    return {k: reduce_to([p[k] for p in parts], mesh.lead) for k in parts[0]}
+
+
+def _train_step(terms_fn: Callable, finish: Callable, mesh: Mesh | None,
+                prepare: Callable | None = None) -> Callable:
+    """A step from ``terms_fn(model, batch) -> {name: partial sum}`` and
+    ``finish(terms, batch) -> (loss, metrics)``: the terms over the dp
+    shards (``sharded_terms``; every shard after the first runs a copy of
+    the model holding this step's weights), the gradients (every copy's
+    summed into the model's, the dp psum), the clip, the AdamW update.
+    ``prepare(batch)`` adds what is drawn for the whole batch before it
+    splits."""
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, batch)
+        if prepare is not None:
+            batch = prepare(batch)
+        models = [state.model] if mesh is None else replicas(state.model, mesh, DATA_AXIS)
+        loss, metrics = finish(sharded_terms(models, batch, terms_fn, mesh), batch)
         loss.backward()
+        reduce_replica_grads(models)
         params = [p for g in state.optimizer.param_groups for p in g["params"]]
         grad_norm = clip_by_global_norm_(params)
         state.optimizer.step()
@@ -171,17 +230,21 @@ def _train_step(loss_fn: Callable) -> Callable:
 # ---------------- recognizer ----------------
 
 
-def rec_loss(model: nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
+def rec_terms(model: nn.Module, batch: dict) -> dict[str, torch.Tensor]:
     """batch: images (B, H, W) gray uint8 (broadcast to the model's 3
-    channels here), widths (B,), labels (B, L), label_lengths (B,)."""
+    channels here), widths (B,), labels (B, L), label_lengths (B,). The sum
+    of the lines' CTC losses."""
     images = to_unit(batch["images"])
     x = images[:, None].expand(-1, 3, -1, -1)
     logits, lengths = model.forward_nchw(x, batch["widths"], train=True)
-    return ctc_loss(logits, lengths, batch["labels"], batch["label_lengths"]), {}
+    return {"ctc": ctc_line_losses(logits, lengths, batch["labels"],
+                                   batch["label_lengths"]).sum()}
 
 
-def make_rec_train_step() -> Callable:
-    return _train_step(rec_loss)
+def make_rec_train_step(mesh: Mesh | None = None) -> Callable:
+    """The rec step: the mean CTC loss over the global batch."""
+    return _train_step(rec_terms,
+                       lambda t, batch: (t["ctc"] / batch["images"].shape[0], {}), mesh)
 
 
 def rec_batch_iterator(
@@ -305,17 +368,30 @@ def augment_det(f: torch.Tensor, seed: int) -> torch.Tensor:
     seeded by the batch's ``noise_seed``: half the pages quantized to 4 gray
     levels (what a 2-bit det wire delivers), half given Gaussian noise of
     a std drawn up to 0.04, then clipped to [0, 1]."""
-    g = torch.Generator(device=f.device).manual_seed(seed)
-    b = f.shape[0]
+    return apply_augment(f, augment_draws(f.shape, seed, f.device))
+
+
+def augment_draws(shape, seed: int, device: torch.device) -> dict[str, torch.Tensor]:
+    """The augmentation's random draws for a (B, S, S) batch: which pages
+    quantize (B, 1, 1), and each page's noise (B, S, S), already scaled by
+    its std and its coin. Drawn for the whole batch, so a dp step splits
+    the same draws."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = shape[0]
 
     def uniform():
-        return torch.rand((b, 1, 1), generator=g, device=f.device)
+        return torch.rand((b, 1, 1), generator=g, device=device)
 
-    f = torch.where(uniform() < 0.5, torch.round(f * 3.0) / 3.0, f)
+    quantize = uniform() < 0.5
     std = uniform() * 0.04
     apply_noise = (uniform() < 0.5).float()
-    noise = torch.randn(f.shape, generator=g, device=f.device) * std * apply_noise
-    return (f + noise).clamp(0.0, 1.0)
+    noise = torch.randn(shape, generator=g, device=device) * std * apply_noise
+    return {"aug_quantize": quantize, "aug_noise": noise}
+
+
+def apply_augment(f: torch.Tensor, draws: dict) -> torch.Tensor:
+    f = torch.where(draws["aug_quantize"], torch.round(f * 3.0) / 3.0, f)
+    return (f + draws["aug_noise"]).clamp(0.0, 1.0)
 
 
 def normalize_nchw(f: torch.Tensor) -> torch.Tensor:
@@ -327,22 +403,28 @@ def normalize_nchw(f: torch.Tensor) -> torch.Tensor:
     return (f[:, None] - mean) * inv.to(f.device).view(1, 3, 1, 1)
 
 
-def make_det_train_step(augment: bool = True) -> Callable:
+def make_det_train_step(augment: bool = True, mesh: Mesh | None = None) -> Callable:
     """The det step; ``augment=False`` drops the augmentation (the parity
     tests and the card's check against the JAX record)."""
-    from ocr_system_tpu_torch.models.dbnet import db_loss
+    from ocr_system_tpu_torch.models.dbnet import db_loss_finish, db_loss_terms
 
-    def loss_fn(model, batch):
+    def terms(model, batch):
         wire = decode_det_wire(batch)
         f = wire["image"]
         if augment:
-            f = augment_det(f, int(np.asarray(batch["noise_seed"])[0]))
+            f = apply_augment(f, batch)
         out = model.forward_nchw(normalize_nchw(f), train=True)
-        loss = db_loss(out, wire["shrink"], wire["shrink_mask"], wire["thresh"],
-                       wire["thresh_mask"])
-        return loss, {}
+        return db_loss_terms(out, wire["shrink"], wire["shrink_mask"], wire["thresh"],
+                             wire["thresh_mask"])
 
-    return _train_step(loss_fn)
+    def prepare(batch):
+        packed = batch["images"]
+        s = packed.shape[1]
+        seed = int(np.asarray(batch["noise_seed"])[0])
+        return {**batch, **augment_draws((packed.shape[0], s, s), seed, packed.device)}
+
+    return _train_step(terms, lambda t, batch: (db_loss_finish(t), {}), mesh,
+                       prepare if augment else None)
 
 
 def det_page_sources(s: int, charset: Charset | None = None, deva_fraction: float = 0.0):
@@ -452,24 +534,47 @@ def det_batch_iterator(
 
 
 def make_layout_train_step(dtype: torch.dtype = torch.float32,
-                           loss_dtype: torch.dtype | None = None) -> Callable:
+                           loss_dtype: torch.dtype | None = None,
+                           mesh: Mesh | None = None) -> Callable:
     """The layout step at compute ``dtype``, the heads' cross-entropies in
     ``loss_dtype`` (default: the heads' own float32); metrics add
-    ``tag_acc``."""
-    from ocr_system_tpu_torch.models.layout_extractor import extraction_loss
+    ``tag_acc``. Loss and accuracy are masked means over the global batch."""
+    from ocr_system_tpu_torch.models.layout_extractor import (
+        extraction_loss_finish,
+        extraction_loss_terms,
+    )
 
-    def loss_fn(model, batch):
+    def terms(model, batch):
         out = model(batch["ids"].long(), batch["boxes"].long(), batch["mask"], dtype,
                     pos_offset=batch.get("pos_offset"))
         if loss_dtype is not None:
             out = {k: v.to(loss_dtype) for k, v in out.items()}
-        loss = extraction_loss(out, batch["tags"], batch["types"], batch["form"], batch["mask"])
+        t = extraction_loss_terms(out, batch["tags"], batch["types"], batch["form"],
+                                  batch["mask"])
         m = batch["mask"].float()
         hit = (out["tag_logits"].argmax(-1) == batch["tags"]).float()
-        tag_acc = (hit * m).sum() / m.sum().clamp_min(1.0)
-        return loss, {"tag_acc": tag_acc.detach()}
+        return {**t, "hit": (hit * m).sum().detach()}
 
-    return _train_step(loss_fn)
+    def finish(t, batch):
+        loss = extraction_loss_finish(t, batch["form"].shape[0])
+        return loss, {"tag_acc": t["hit"] / t["tag_n"].clamp_min(1.0)}
+
+    return _train_step(terms, finish, mesh)
+
+
+def init_layout_state_sharded(model: nn.Module, lr: float, mesh: Mesh,
+                              generator: torch.Generator | None = None) -> TrainState:
+    """A layout state with its weights placed by their logical axes
+    (``parallel.sharding.shard_params``: mlp and heads split over ``tp``,
+    the rest on the mesh's first device); the optimizer is made on the
+    placed weights, so AdamW's moments live beside their slices. With
+    ``generator``, the model is first drawn from flax's initializers."""
+    from ocr_system_tpu_torch.parallel.sharding import shard_params
+
+    if generator is not None:
+        model.init_flax_(generator)
+    shard_params(model, mesh)
+    return TrainState(model, make_optimizer(model.parameters(), lr))
 
 
 def layout_batch_iterator(
@@ -553,18 +658,21 @@ def train_recognizer(
     state: TrainState | None = None,
     font_range: tuple[int, int] = (12, 38),
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[TrainState, dict]:
-    """Train the SVTR recognizer on synthetic lines. Returns (state,
+    """Train the SVTR recognizer on synthetic lines, the batch split over
+    ``mesh``'s dp (default ``shd_default_mesh``). Returns (state,
     metrics). Without ``state``, the model starts from flax's initializers
     at ``seed``."""
     from ocr_system_tpu_torch.models.recognizer import SVTRRecognizer
 
     charset = get_charset(charset_name)
+    mesh = mesh or shd_default_mesh(device)
     if state is None:
         model = SVTRRecognizer(vocab_size=charset.size, policy=policy or default_policy())
-        state = init_state(model, lr, device, torch.Generator().manual_seed(seed))
+        state = init_state(model, lr, mesh.lead, torch.Generator().manual_seed(seed))
     it = rec_batch_iterator(charset, batch_size, width=width, seed=seed, font_range=font_range)
-    seen = _run("rec", state, make_rec_train_step(), it, steps, log_every)
+    seen = _run("rec", state, make_rec_train_step(mesh), it, steps, log_every)
     losses = seen["loss"]
     return state, {"loss_first": losses[0].item(), "loss_last": _mean_last(losses, 10)}
 
@@ -584,16 +692,19 @@ def train_detector(
     forms_fraction: float = 0.5,
     deva_fraction: float = 0.0,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[TrainState, dict]:
-    """Train DBNet (with its threshold head) on synthetic pages; with
+    """Train DBNet (with its threshold head) on synthetic pages, the batch
+    split over ``mesh``'s dp (default ``shd_default_mesh``); with
     ``save_every`` and ``save_path``, a checkpoint every ``save_every``
     steps."""
     from ocr_system_tpu_torch.core.checkpoint import save_checkpoint
     from ocr_system_tpu_torch.models.dbnet import DBNet
 
+    mesh = mesh or shd_default_mesh(device)
     if state is None:
         model = DBNet(policy=policy or default_policy(), thresh_head=True)
-        state = init_state(model, lr, device, torch.Generator().manual_seed(seed))
+        state = init_state(model, lr, mesh.lead, torch.Generator().manual_seed(seed))
     it = det_batch_iterator(batch_size, size=size, seed=seed, pool_size=pool_size,
                             forms_fraction=forms_fraction, deva_fraction=deva_fraction)
 
@@ -603,7 +714,8 @@ def train_detector(
             logger.info("det checkpoint @ step %d -> %s", i, save_path)
 
     try:
-        seen = _run("det", state, make_det_train_step(), it, steps, log_every, save=save)
+        seen = _run("det", state, make_det_train_step(mesh=mesh), it, steps, log_every,
+                    save=save)
     finally:
         it.close()  # stops the page workers
     losses = seen["loss"]
@@ -626,21 +738,25 @@ def train_layout(
     depth: int = 6,
     deva_fraction: float | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[TrainState, dict]:
     """Train the layout extractor on streamed synthetic form specs, at the
-    policy's compute dtype."""
+    policy's compute dtype, the batch split over ``mesh``'s dp and the
+    mlp and heads dimensions over its tp (default ``shd_default_mesh``,
+    ``dp=-1,tp=1``)."""
     from ocr_system_tpu_torch.models.layout_extractor import LayoutExtractor
 
     charset = get_charset(charset_name)
     policy = policy or default_policy()
+    mesh = mesh or shd_default_mesh(device, "dp=-1,tp=1")
     if state is None:
         model = LayoutExtractor(vocab_size=charset.size, dim=dim, depth=depth)
-        state = init_state(model, lr, device, torch.Generator().manual_seed(seed))
+        state = init_layout_state_sharded(model, lr, mesh, torch.Generator().manual_seed(seed))
     it = layout_batch_iterator(charset, batch_size, max_len=max_len, page_size=page_size,
                                seed=seed, noise_rate=noise_rate,
                                pos_span=state.model.max_len, deva_fraction=deva_fraction)
-    seen = _run("layout", state, make_layout_train_step(policy.compute_dtype), it, steps,
-                log_every, keys=("loss", "tag_acc"))
+    seen = _run("layout", state, make_layout_train_step(policy.compute_dtype, mesh=mesh), it,
+                steps, log_every, keys=("loss", "tag_acc"))
     losses, accs = seen["loss"], seen["tag_acc"]
     return state, {"loss_first": losses[0].item(), "loss_last": _mean_last(losses, 10),
                    "tag_acc_last": _mean_last(accs, 10)}

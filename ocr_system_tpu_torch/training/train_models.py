@@ -6,7 +6,10 @@ scripts/train_models.py).
     python -m ocr_system_tpu_torch.training.train_models layout --steps 4000 --batch 32
     python -m ocr_system_tpu_torch.training.train_models all    [--quick]
 
-It runs on the card (``--device cpu`` is for tests). Checkpoints are float32
+It runs on the card (``--device cpu`` is for tests), each trainer on its
+default mesh as the JAX script's: the batch split over every visible card
+(``training/train.shd_default_mesh``, ``dp=-1``; the layout model at
+``tp=1``), one card on a one-card machine. Checkpoints are float32
 ``.npz`` state dicts (``core/checkpoint.py``) under ``checkpoints/``, the
 models computing at the serving policy's dtype (bf16), as the JAX script's:
 ``rec_<charset>.npz``, ``det.npz`` (with the threshold head, which the

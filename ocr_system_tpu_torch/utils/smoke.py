@@ -25,7 +25,12 @@ import torch
 
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
-from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, combine_markdown, get_engine
+from ocr_system_tpu_torch.engine.pipeline import (
+    TorchOCREngine,
+    _build_engine,
+    combine_markdown,
+    get_engine,
+)
 
 PACKAGE = Path(__file__).resolve().parents[1]
 TRAINED = {
@@ -87,6 +92,14 @@ def build_engine(device, **overrides) -> TorchOCREngine:
     """``get_engine`` of the serving defaults + overrides with the trained
     weights."""
     return get_engine(Settings(**{**TRAINED, **overrides}), device=device)
+
+
+def new_engine(device, **overrides) -> TorchOCREngine:
+    """A new engine of the serving defaults + overrides with the trained
+    weights, not ``get_engine``'s shared one: an engine resolves its mesh
+    at its first wave, so each mesh needs its own."""
+    s = Settings(**{**TRAINED, **overrides})
+    return _build_engine(s.ocr_engine, s, device)
 
 
 def smoke_forms() -> tuple[np.ndarray, dict]:

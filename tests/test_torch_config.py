@@ -1,5 +1,5 @@
 """The port's Settings against the JAX package's: same fields, defaults and
-environment names (minus mesh_shape), same .env and environment parsing."""
+environment names, same .env and environment parsing."""
 
 import dataclasses
 
@@ -17,7 +17,6 @@ PORT_FIELDS = {f.name: f for f in dataclasses.fields(Settings)}
 
 def test_same_fields_and_defaults():
     jax_fields = dict(JaxSettings.model_fields)
-    assert jax_fields.pop("mesh_shape")
     assert set(PORT_FIELDS) == set(jax_fields)
     jax_defaults = JaxSettings()
     port_defaults = Settings()
@@ -35,6 +34,7 @@ ENV_CASES = [
     ("DET_IMAGE_BUCKETS", "640,960"),  # tuple of ints
     ("ALLOWED_EXTENSIONS", "png,pdf"),  # tuple of strings
     ("COMPUTE_DTYPE", "float32"),  # str
+    ("MESH_SHAPE", "dp=2,tp=2"),
 ]
 
 

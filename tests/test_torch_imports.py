@@ -1,13 +1,14 @@
 """The card machine's package list as a test: the port and chip_smoke.py
 import and run with jax, flax, optax, orbax, pydantic, cv2, PIL, fontTools,
 safetensors and the JAX package all refused: every module of the port
-imports (the training package's synthetic renderers among them), and
-chip_smoke.py's phases run at a tiny size on the committed weights and
-forms, the hybrid engine's, the glue split's, field extraction's, the
-service's (a scanned PDF uploaded to the port's app on a socket, through
-to its exports) and training's (each trainer's steps on a cut of its
-committed batch, train_layout through the PIL-free form generator) among
-them."""
+imports (the training package's synthetic renderers and the parallel
+layer among them), and chip_smoke.py's phases run at a tiny size on the
+committed weights and forms, the hybrid engine's, the glue split's, field
+extraction's, the service's (a scanned PDF uploaded to the port's app on a
+socket, through to its exports), training's (each trainer's steps on a cut
+of its committed batch, train_layout through the PIL-free form generator)
+and the parallel layer's (the multichip phases on virtual CPU meshes and
+the multichip dry run) among them."""
 
 import ast
 import os
@@ -137,6 +138,29 @@ for name in smoke.TRAIN_NAMES:
     assert len(tr["loss"]) == 3 and tr["host_step_ms"] > 0 and "deviation" not in tr, tr
 cli = cs.phase_train_layout_cli("cpu", steps=2, batch_size=2, max_len=64, dim=64, depth=2)
 assert cli["host_steps_per_s"] > 0 and np.isfinite(cli["loss_last"]), cli
+# the parallel layer on virtual meshes of the CPU: the tiny hybrid wave
+# split over dp=4 against the one-device mesh and the engine's first run,
+# sp extraction on one committed document, a dp=2 rec step on 2 samples,
+# GPipe over the extractor's first 4 blocks, and the dry run of every path
+from ocr_system_tpu_torch.core.mesh import build_mesh
+from ocr_system_tpu_torch.utils.multichip import dryrun_multichip
+
+own = [smoke.page_record(*r) for r in zip(hybrid.process_pages(pages(small)), hybrid.routed,
+                                          hybrid.rescued)]
+mcw = cs.phase_dp_wave("cpu", pages(small), own, {**expected["settings"], **tiny},
+                       build_mesh("dp=-1", ["cpu"]))
+assert mcw["records_equal"] and mcw["meshes"]["dp4"]["distinct_devices"] == 1, mcw
+docs4 = {k: docs[k] for k in ("pages/4",)}
+sp = cs.phase_sp_extract("cpu", docs4, smoke.extract_expected()["docs"]["float32"],
+                         buckets=(256,), logits_at=256)
+assert sp["docs_equal"] == 1 and max(sp["logits_rel_diff"].values()) <= 1e-4, sp
+tm = cs.phase_train_mesh("rec", "cpu", want, None, cs.virtual_mesh("dp=-1", "cpu", 2), n=2)
+gap = np.abs(np.subtract(tm["loss"], tm["one_device_loss"])).max()
+assert gap <= 1e-4 * np.abs(tm["one_device_loss"]).max(), tm
+gp = cs.phase_gpipe("cpu", n_micro=4, mb=1, tokens=16, depth=4)
+assert gp["forward_rel_diff"] <= 1e-5 and gp["ticks"] == 7, gp
+dry = dryrun_multichip(4, devices=["cpu"] * 4)
+assert dry["distinct_devices"] == 1 and dry["scheduler_waves"] == 2, dry
 print("OK", rec["launches"], eng["launches"], hyb["launches"], mix["launches"], sch["launches"],
       e2e["launches"], svc["launches"])
 ''' % (BLOCKED,)
@@ -189,9 +213,15 @@ def _imports(path: Path):
     return out
 
 
+# the parallel layer's modules, each among the files checked below
+PARALLEL = ("core/mesh.py", "parallel/sharding.py", "parallel/pipeline.py",
+            "parallel/ring_attention.py", "utils/multichip.py")
+
+
 def test_no_port_file_imports_a_refused_module():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {PORT / m for m in PARALLEL} <= set(files)
     bad = [
         (str(f.relative_to(REPO)), func, mod)
         for f in files

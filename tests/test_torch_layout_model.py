@@ -92,8 +92,16 @@ def test_small_model_bf16_close_to_jax(seed):
 
 
 def test_sequence_parallel_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        layout_extractor.LayoutExtractor(10, 16, 1, 2, sequence_parallel=True)
+    """Sequence parallelism is served now (ring attention over the mesh's
+    sp axis, tests/test_torch_parallel.py); what is refused is a sequence
+    that does not split over sp."""
+    from ocr_system_tpu_torch.core.mesh import build_mesh, mesh_context
+
+    m = layout_extractor.LayoutExtractor(10, 16, 1, 2, max_len=16, sequence_parallel=True)
+    ids, boxes = torch.zeros(1, 10, dtype=torch.long), torch.zeros(1, 10, 4, dtype=torch.long)
+    with mesh_context(build_mesh("sp=4", ["cpu"] * 4)), pytest.raises(
+            ValueError, match="does not split"):
+        m(ids, boxes, torch.ones(1, 10))
 
 
 def test_layout_state_dict_covers_every_parameter():

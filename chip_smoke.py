@@ -100,8 +100,30 @@ virtual 4-way mesh. A virtual mesh's times measure the schedule on one
 card, not multi-card speed; the kernels line adds each kernel's launches
 per dp shard of the virtual wave.
 
-Each phase prints one JSON line; then one line with every kernel's numbers,
-then the card's ``nvidia-smi`` name and power limit, and last
+The native host ops (``native/cc_label.cpp``, ``native/ink_walk.cpp``):
+the ``native`` phase builds their library with g++ from the checkout
+(version and seconds printed), records what the served detector hands
+them on the 8 Latin and 4 Hindi committed forms (the gray page and its
+quads before the ink walk, the probability-map box path's maps at
+det_prob_wire_bits 4) and holds each op against its plain version
+(``native/plain.py``): connected components in both label orders and their
+statistics on the pages' ink masks, the fused analysis at stride 1 and 2,
+the batch ink walk; labels, counts, boxes and quads equal, sums and
+moments within ``NATIVE_SUM_RTOL``; ms per page of each, native and plain.
+Every wave phase (hybrid, mixed, scheduler, each detector setting) must
+call the native ops (``NATIVE_ON_WAVE``; ``cc_analyze_u8`` too at a prob
+wire width), and ``host_ops`` times them beside the plain versions. The
+``scripts`` phase runs the port's entry points for the JAX package's
+scripts once each: ``db.init_db`` (also through ``python -m``),
+``db.db_admin tables`` and ``check`` on a temporary sqlite file,
+``utils.debug_engine`` on committed form 1 as a one-page scanned PDF,
+``utils.demo``, ``training.compare_extractors --forms 2`` and
+``training.diag_forms --pages 1``, each with its expected shape of output.
+
+Each phase prints one JSON line; then the ``native`` line (each native
+op's calls on the served waves and its ms against its plain version on
+this host), one line with every kernel's numbers, then the card's
+``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code is
 then nonzero and no result line is printed. Without a CUDA device, or
 outside a checkout of the repository, it exits 1 at once.
@@ -116,6 +138,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -133,17 +156,39 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
+def native_counters() -> dict:
+    """The native host ops' call counters, by C function."""
+    from ocr_system_tpu_torch.native import cc_label, ink_walk
+
+    return {**cc_label.CALLS, **ink_walk.CALLS}
+
+
 def reset_counts() -> None:
     from ocr_system_tpu_torch.kernels import crop, enhance
 
     enhance.LAUNCHES.reset()
     crop.LAUNCHES.reset()
+    for c in native_counters().values():
+        c.reset()
 
 
 def counts() -> dict[str, int]:
     from ocr_system_tpu_torch.kernels import crop, enhance
 
     return {"enhance": enhance.LAUNCHES.value, "crop": crop.LAUNCHES.value}
+
+
+def native_calls() -> dict[str, int]:
+    return {name: c.value for name, c in native_counters().items()}
+
+
+# the native ops every served wave calls (the probability-map box path's
+# cc_analyze_u8 only at det_prob_wire_bits 1, 4 and 8)
+NATIVE_ON_WAVE = ("cc_label_u8", "cc_block_order", "cc_stats", "ink_expand_batch")
+
+
+def native_misses(calls: dict, want=NATIVE_ON_WAVE) -> list[str]:
+    return [f"native {name} not called: {calls}" for name in want if calls[name] <= 0]
 
 
 def check_outputs(outs, pages) -> int:
@@ -313,6 +358,7 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
         outs = engine.process_pages(pages)
         sec = time.perf_counter() - t
         launched = counts()
+        native = native_calls()
     finally:
         if deva is not None:
             del engine.devanagari._rec_on_stack
@@ -363,9 +409,9 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
            "text_share_vs": {k: text_share(v, records) for k, v in (also or {}).items()},
            "hindi_text_share_vs": {k: text_share(v[:hindi], records[:hindi])
                                    for k, v in (also or {}).items() if hindi},
-           "launches": launched, "stage_ms": dict(engine.stage_ms), "wall_s": sec,
-           "pages_per_s": len(pages) / sec}
-    failed = []
+           "launches": launched, "native_calls": native, "stage_ms": dict(engine.stage_ms),
+           "wall_s": sec, "pages_per_s": len(pages) / sec}
+    failed = native_misses(native)
     if len(outs) != len(expected) or matched < min_text * n or boxes < min_boxes * n:
         failed.append(f"{matched} (text, {row['gated']}) and {boxes} (boxes) of {n} words "
                       f"matched, under {min_text:.3f} / {min_boxes:.3f}")
@@ -820,20 +866,26 @@ def phase_host_ops(page, iters: int = 3) -> dict:
     """ms per page on this host for the host image operations the hybrid
     path runs (median of ``iters``): the Gaussian threshold (classical
     detector), the mean threshold (marks and handwriting), both component
-    orders and the dilations; and the save stage's JPEG encoding of the
-    page (quality 92, the default)."""
+    orders and their statistics, each by the native op (``*_native``) and
+    by its plain version; the dilations; and the save stage's JPEG encoding
+    of the page (quality 92, the default)."""
     from ocr_system_tpu_torch.engine import host_image
     from ocr_system_tpu_torch.engine.jpeg import encode_jpeg
-    from ocr_system_tpu_torch.native import cc_label
+    from ocr_system_tpu_torch.native import cc_label, plain
 
     gray = host_image.rgb_to_gray(page)
     mask = host_image.adaptive_threshold(gray, "mean")
+    maskf = mask.astype(np.float32)
+
     ops = {
         "threshold_gaussian": lambda: host_image.adaptive_threshold(gray, "gaussian"),
         "threshold_mean": lambda: host_image.adaptive_threshold(gray, "mean"),
-        "cc_raster_order": lambda: cc_label.label(mask),
-        "cc_cv2_order": lambda: cc_label.label_cv2(mask),
-        "cc_stats": lambda: cc_label.stats(*cc_label.label(mask)),
+        "cc_raster_order": lambda: plain.label(mask),
+        "cc_raster_order_native": lambda: cc_label.label(mask),
+        "cc_cv2_order": lambda: plain.label_cv2(mask),
+        "cc_cv2_order_native": lambda: cc_label.label_cv2(mask),
+        "cc_stats": lambda: _label_stats(plain, mask, maskf),
+        "cc_stats_native": lambda: _label_stats(cc_label, mask, maskf),
         "dilate_1x7": lambda: host_image.dilate(mask, (1, 7)),
         "dilate_3x3": lambda: host_image.dilate(mask, (3, 3)),
         "encode_jpeg": lambda: encode_jpeg(page, 92),
@@ -849,6 +901,226 @@ def phase_host_ops(page, iters: int = 3) -> dict:
     return {"phase": "host_ops", "page": list(page.shape), "ms": out}
 
 
+# the relative bar of the native sums and moments (float64, accumulated in
+# raster order) against the plain version's (np.bincount, the same order):
+# equal in practice; anything past rounding is a fault
+NATIVE_SUM_RTOL = 1e-12
+# each native function, its source, and the JAX package's op it ports
+NATIVE_SOURCES = {
+    "cc_label_u8": ("cc_label.cpp", "ocr_system_tpu/native/cc_label.cpp:54"),
+    "cc_block_order": ("cc_label.cpp", "cv2.connectedComponentsWithStats, "
+                       "ocr_system_tpu/engine/selection_marks.py:72"),
+    "cc_stats": ("cc_label.cpp", "ocr_system_tpu/native/cc_label.cpp:110"),
+    "cc_analyze_u8": ("cc_label.cpp", "ocr_system_tpu/native/cc_label.cpp:150"),
+    "ink_expand_batch": ("ink_walk.cpp", "ocr_system_tpu/native/ink_walk.cpp:32"),
+}
+
+
+def served_native_inputs(engine, pages: list) -> list[dict]:
+    """What the served detector hands the native ops on each page: its
+    gray page and the axis-aligned quads before the ink walk, and the
+    probability-map box path's binary map and probability map (the engine
+    is built with a prob wire width), recorded during one ``detect_batch``."""
+    from ocr_system_tpu_torch.engine import detector as det_mod
+    from ocr_system_tpu_torch.native import cc_label
+
+    seen: dict[str, list] = {"ink": [], "analyze": []}
+    real_ink, real_analyze = det_mod.ink_expand_batch, cc_label.analyze
+
+    def ink(gray, quads, *args):
+        seen["ink"].append((gray.copy(), quads.copy()))
+        return real_ink(gray, quads, *args)
+
+    def analyze(binary, prob, stride=1, *args, **kw):
+        seen["analyze"].append((np.array(binary, np.uint8), np.array(prob, np.float32), stride))
+        return real_analyze(binary, prob, stride, *args, **kw)
+
+    det_mod.ink_expand_batch, cc_label.analyze = ink, analyze
+    try:
+        engine.detector.detect_batch(pages)
+    finally:
+        det_mod.ink_expand_batch, cc_label.analyze = real_ink, real_analyze
+    if not (len(seen["ink"]) == len(seen["analyze"]) == len(pages)):
+        raise AssertionError(f"recorded {len(seen['ink'])} ink walks and "
+                             f"{len(seen['analyze'])} analyses for {len(pages)} pages")
+    return [{"gray": g, "quads": q, "binary": b, "prob": p}
+            for (g, q), (b, p, _) in zip(seen["ink"], seen["analyze"])]
+
+
+def phase_native(engine, pages: list, iters: int = 3, smi: str = "") -> dict:
+    """The native host library: built from the checkout with g++ (version
+    and seconds printed), then each native op held against its plain
+    version (``native/plain.py``) on every page's served inputs (``engine``:
+    a detector at det_prob_wire_bits 4): ``label`` on the mean (marks and
+    handwriting) and Gaussian (classical) ink masks, the cv2 order,
+    ``stats``, ``analyze`` at stride 1 on the probability map and at
+    stride 2 on it pooled by 2, and ``ink_expand_batch`` on the detector's
+    quads. Labels, counts, bboxes and quads must be equal, sums and moments
+    within NATIVE_SUM_RTOL. ms per page on this host, native and plain, the
+    median of ``iters`` runs over all pages."""
+    from ocr_system_tpu_torch.engine import host_image
+    from ocr_system_tpu_torch.native import build, cc_label, ink_walk, plain
+
+    t = time.perf_counter()
+    so = build.build()
+    build.library()
+    build_s = time.perf_counter() - t
+    inputs = served_native_inputs(engine, pages)
+    cases = []
+    for inp in inputs:
+        gray = inp["gray"]
+        binary, prob = inp["binary"], inp["prob"]
+        pooled = prob[: prob.shape[0] // 2 * 2, : prob.shape[1] // 2 * 2]
+        pooled = pooled.reshape(pooled.shape[0] // 2, 2, -1, 2).mean(axis=(1, 3))
+        for mask in (host_image.adaptive_threshold(gray, "mean"),
+                     host_image.adaptive_threshold(gray, "gaussian")):
+            cases.append((mask, mask.astype(np.float32), binary, prob, pooled, gray,
+                          inp["quads"]))
+
+    ops = {
+        "cc_label_u8": lambda mod, c: mod.label(c[0]),
+        "cc_block_order": lambda mod, c: mod.label_cv2(c[0]),
+        "cc_stats": lambda mod, c: _label_stats(mod, c[0], c[1]),
+        "cc_analyze_u8_stride1": lambda mod, c: mod.analyze(c[2], c[3], 1),
+        "cc_analyze_u8_stride2": lambda mod, c: mod.analyze(c[2], c[4], 2),
+        "ink_expand_batch": lambda mod, c: mod.ink_expand_batch(c[5], c[6].copy()),
+    }
+    rows, failed = {}, []
+    for name, fn in ops.items():
+        native = ink_walk if name == "ink_expand_batch" else cc_label
+        worst, unequal = 0.0, 0
+        for c in cases:
+            got, want = fn(native, c), fn(plain, c)
+            exact, close = _native_split(name, got, want)
+            unequal += not all(np.array_equal(g, w) for g, w in exact)
+            for g, w in close:
+                rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
+                worst = max(worst, float(rel.max(initial=0.0)))
+        ms = {}
+        for label, mod in (("ms", native), ("plain_ms", plain)):
+            runs = []
+            for _ in range(iters):
+                t = time.perf_counter()
+                for c in cases[::2]:  # one case per page (the mean mask's)
+                    fn(mod, c)
+                runs.append((time.perf_counter() - t) * 1e3 / len(inputs))
+            ms[label] = sorted(runs)[len(runs) // 2]
+        rows[name] = {**ms, "speedup": ms["plain_ms"] / max(ms["ms"], 1e-9),
+                      "cases": len(cases), "unequal": unequal, "max_rel_err": worst}
+        if unequal or worst > NATIVE_SUM_RTOL:
+            failed.append(f"{name}: {unequal} cases unequal, sums within {worst:.3g}")
+    gxx = build.compiler_version(build.compiler())
+    row = {"phase": "native", "library": os.path.relpath(so, REPO), "gxx": gxx,
+           "cpu": build.cpu_model().split(" | ")[0], "build_s": build_s, "pages": len(inputs),
+           "boxes": sum(len(i["quads"]) for i in inputs), "ops": rows,
+           "sum_rtol": NATIVE_SUM_RTOL, "nvidia_smi": smi}
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError("native: " + "; ".join(failed))
+    return row
+
+
+def _label_stats(mod, mask, prob):
+    """A label, then its statistics, as the served callers do."""
+    labels, n = mod.label(mask)
+    return mod.stats(labels, prob, n)
+
+
+def _native_split(name: str, got, want) -> tuple[list, list]:
+    """A native op's outputs and its plain version's, split into the pairs
+    that must be equal and the float64 sums held within the bar."""
+    if name == "cc_stats":
+        return [(got[0], want[0]), (got[2], want[2])], [(got[1], want[1])]
+    if name.startswith("cc_analyze"):
+        return ([(got[0], want[0]), (np.int64(got[1]), np.int64(want[1])),
+                 (got[2], want[2]), (got[4], want[4])],
+                [(got[3], want[3]), (got[5], want[5])])
+    if name == "ink_expand_batch":
+        return [(got, want)], []
+    return [(got[0], want[0]), (np.int64(got[1]), np.int64(want[1]))], []
+
+
+def phase_scripts(device, form: np.ndarray, root: str) -> dict:
+    """The port's entry points for the JAX package's scripts, each once
+    with its expected shape of output: ``db.init_db`` through ``python -m``
+    and in this process, ``db.db_admin tables|check`` on a temporary sqlite
+    file; ``utils.debug_engine`` on ``form`` (a one-page scanned PDF, the
+    served engine with the trained weights); ``utils.demo`` with the
+    trained weights; ``training.compare_extractors --forms 2`` and
+    ``training.diag_forms --pages 1``. Seconds per entry point."""
+    import contextlib
+    import importlib
+    import io
+
+    from ocr_system_tpu_torch.core.config import reset_settings_cache
+    from ocr_system_tpu_torch.utils import smoke
+
+    db = os.path.join(root, "scripts.db")
+    env = {"DATABASE_PATH": db, "STORAGE_ROOT": os.path.join(root, "storage"),
+           "OCR_ENGINE": "hybrid", "PDF_RASTER_DPI": str(smoke.SERVICE_DPI),
+           **{k.upper(): v for k, v in smoke.TRAINED.items()}}
+    pdf = os.path.join(root, "form.pdf")
+    with open(pdf, "wb") as f:
+        f.write(smoke.scanned_pdf([np.ascontiguousarray(form[..., 0])]))
+    extract = str(smoke.PACKAGE / "weights" / "extract.npz")
+    dev = ["--device", str(device)]
+    runs = {
+        "init_db": ("db.init_db", [], r"database ready at .*\(\d+ templates seeded"),
+        "db_admin_tables": ("db.db_admin", ["tables"], r"form_templates +\d+"),
+        "db_admin_check": ("db.db_admin", ["check"], r"integrity_check: ok"),
+        "debug_engine": ("utils.debug_engine", [pdf, *dev], r'"success": true'),
+        "demo": ("utils.demo", dev, r"Extracted fields \(form type: Invoice\)"),
+        "compare_extractors": ("training.compare_extractors",
+                               ["--forms", "2", "--a", extract, "--b", extract, *dev],
+                               r"VERDICT (ACCEPT|borderline|REJECT) "),
+        "diag_forms": ("training.diag_forms", ["--pages", "1", *dev],
+                       r"=== form page 0  page_cer="),
+    }
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    row: dict = {"phase": "scripts", "s": {}, "lines": {}}
+    failed = []
+    try:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.db.init_db"], cwd=REPO,
+                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": REPO})
+        row["s"]["python_-m_init_db"] = time.perf_counter() - t
+        if proc.returncode != 0 or "templates seeded" not in proc.stdout:
+            failed.append(f"python -m init_db: {proc.returncode} {proc.stdout!r} {proc.stderr[-500:]}")
+        for name, (module, argv, shape) in runs.items():
+            reset_settings_cache()
+            out = io.StringIO()
+            t = time.perf_counter()
+            code = 0
+            with contextlib.redirect_stdout(out):
+                try:
+                    code = importlib.import_module(f"{PKG}.{module}").main(argv) or 0
+                except SystemExit as e:
+                    code = e.code if isinstance(e.code, int) else 1
+            row["s"][name] = time.perf_counter() - t
+            text = out.getvalue()
+            row["lines"][name] = len(text.splitlines())
+            if code != 0 or not re.search(shape, text):
+                failed.append(f"{name}: exit {code}, output {text[-800:]!r}")
+            if name == "debug_engine" and '"success": true' in text:
+                report = json.loads(text)
+                row["debug_engine_words"] = report["boxes_by_type"].get("word", 0)
+                if report["total_pages"] != 1 or not report["boxes_by_type"].get("word"):
+                    failed.append(f"debug_engine: {report['boxes_by_type']}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_settings_cache()
+    row["total_s"] = sum(row["s"].values())
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError("scripts: " + "; ".join(failed))
+    return row
+
+
 def phase_scheduler(engine, pages) -> dict:
     """Two waves through ``PageScheduler.process``: no retries, no failures."""
     from ocr_system_tpu_torch.engine.scheduler import PageScheduler
@@ -859,6 +1131,7 @@ def phase_scheduler(engine, pages) -> dict:
     outs = sched.process(pages)
     sec = time.perf_counter() - t
     launched = counts()
+    native = native_calls()
     st = sched.stats
     if st.retried_pages or st.failed_pages:
         raise AssertionError(f"scheduler fell back: {st}")
@@ -866,10 +1139,12 @@ def phase_scheduler(engine, pages) -> dict:
     if engine.recognizer.device.type == "cuda" and (
             launched["enhance"] < st.waves or launched["crop"] <= 0):
         raise AssertionError(f"kernels not on the path: {launched}")
+    if native_misses(native):
+        raise AssertionError("; ".join(native_misses(native)))
     return {"phase": "scheduler", "pages": len(pages), "waves": st.waves,
             "retried_pages": st.retried_pages, "failed_pages": st.failed_pages,
-            "words": words, "launches": launched, "stage_ms": sched.timer.as_ms(),
-            "wall_s": sec, "pages_per_s": len(pages) / sec}
+            "words": words, "launches": launched, "native_calls": native,
+            "stage_ms": sched.timer.as_ms(), "wall_s": sec, "pages_per_s": len(pages) / sec}
 
 
 # ---------------- training ----------------
@@ -1435,6 +1710,7 @@ def phase_det_settings(device, forms, base: dict, record: dict, smi: str = "") -
         outs = engine.process_pages(pages)
         ms = (time.perf_counter() - t) * 1e3
         launched = counts()
+        native = native_calls()
         check_outputs(outs, pages)
         got = [smoke.det_settings_record(o) for o in outs]
         per = [smoke.compare_to_expected(e, g) for e, g in zip(record[name], got, strict=True)]
@@ -1444,12 +1720,16 @@ def phase_det_settings(device, forms, base: dict, record: dict, smi: str = "") -
         want = ("crop",) if name in smoke.DET_SETTINGS_PLAIN else ("enhance", "crop")
         on_card = engine.recognizer.device.type == "cuda"
         misses = launch_misses(launched, want, on_card)
+        # the probability-map box path serves every prob wire width
+        analyzed = ("cc_analyze_u8",) if update.get("det_prob_wire_bits") else ()
+        misses += native_misses(native, NATIVE_ON_WAVE + analyzed)
         if matched < 0.98 * n:
             misses.append(f"{matched} of {n} words matched, under 0.98")
         if not all(counts_equal):
             misses.append(f"word counts differ: {[len(g['word']) for g in got]} against "
                           f"{[len(e['word']) for e in record[name]]}")
         row["settings"][name] = {"update": update, "wave_ms": ms, "launches": launched,
+                                 "native_calls": native,
                                  "words_expected": n, "words_matched": matched,
                                  "word_counts": [len(g["word"]) for g in got],
                                  "stage_ms": dict(engine.stage_ms), "misses": misses}
@@ -1979,6 +2259,13 @@ def main() -> int:
     def as_pages(arrays):
         return [PageImage(np.ascontiguousarray(p), i + 1) for i, p in enumerate(arrays)]
 
+    # ---- phase 2b: the native host library, each op against its plain
+    # version on the 12 committed forms' served inputs ----
+    t = time.perf_counter()
+    nat = phase_native(smoke.build_engine(dev, **smoke.NEURAL, det_prob_wire_bits=4),
+                       [*forms, *hindi], smi=smi)
+    emit({**nat, "elapsed_s": time.perf_counter() - t})
+
     # ---- phase 3: recognizer on explicit quads ----
     t = time.perf_counter()
     neural = smoke.build_engine(dev, **smoke.NEURAL)
@@ -2094,14 +2381,19 @@ def main() -> int:
     emit(phase_host_ops(forms[1]))
     del hybrid
 
+    # ---- phase 8a: the entry points of the JAX package's scripts ----
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        emit({**phase_scripts(dev, forms[1], root), "elapsed_s": time.perf_counter() - t})
+
     # ---- phase 8b: the fonts the renderer reads (the package's), then the
     # detector settings and the quality evaluation against the JAX record ----
     want_eval = smoke.eval_expected()
     emit(phase_fonts(want_eval))
     t = time.perf_counter()
-    emit({**phase_det_settings(dev, forms[:smoke.DET_SETTINGS_FORMS], expected["settings"],
-                               want_eval["det_settings"], smi=smi),
-          "elapsed_s": time.perf_counter() - t})
+    dets = phase_det_settings(dev, forms[:smoke.DET_SETTINGS_FORMS], expected["settings"],
+                              want_eval["det_settings"], smi=smi)
+    emit({**dets, "elapsed_s": time.perf_counter() - t})
     kits = {dtype: smoke.eval_kit(dev, dtype) for dtype in ("float32", "bfloat16")}
     arrays = smoke.eval_renders()
     for name in smoke.EVAL_PHASES:
@@ -2187,6 +2479,19 @@ def main() -> int:
             # the virtual dp wave's launches on each of its dp shards
             "launches_per_dp_shard": mc_wave["launches_per_shard"][name],
         })
+    # the native host ops (not TPU kernels): calls on the served waves,
+    # ms per page against the plain version, on this host
+    prob_wave = dets["settings"]["prob_wire_4"]["native_calls"]
+    native = []
+    for name, row in nat["ops"].items():
+        fn = name.split("_stride")[0]
+        src, replaces = NATIVE_SOURCES[fn]
+        native.append({
+            "name": name, "source": f"{PKG}/native/{src}", "replaces": replaces,
+            "calls": {"hybrid_bf16": h16["native_calls"][fn], "mixed_bf16": m16["native_calls"][fn],
+                      "scheduler": sch["native_calls"][fn], "prob_wire_4": prob_wave[fn]},
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "max_rel_err": row["max_rel_err"]})
+    emit({"native": native, "gxx": nat["gxx"], "build_s": nat["build_s"]})
     emit({"kernels": kernels, "total_s": time.perf_counter() - t_all})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,10 @@ of ocr_system_tpu/engine/classical_detector.py, its cv2 branch).
   dilation merges characters into word blobs -> connected components ->
   padded boxes -> size/density filtering
 
-All host work in numpy and scipy: ``engine/host_image`` carries OpenCV's
-threshold, dilation and float resize bit for bit, ``native/cc_label`` the
-native labeling's order. No trained weights: the deployment fallback when
+All host work on the CPU: ``engine/host_image`` carries OpenCV's
+threshold, dilation and float resize bit for bit in numpy and scipy; the
+components come from the native op (``native/cc_label``), as in the JAX
+package. No trained weights: the deployment fallback when
 no DBNet checkpoint is available, and the classical half of the hybrid
 detector.
 """
@@ -77,7 +78,7 @@ def _estimate_char_height(mask: np.ndarray) -> float:
     labels, n = cc_label.label(mask)
     if n == 0:
         return 12.0
-    _, bboxes = cc_label.stats(labels, n)
+    _, _, bboxes = cc_label.stats(labels, mask.astype(np.float32), n)
     heights = (bboxes[1:, 3] - bboxes[1:, 1] + 1).astype(np.float32)
     # glyphs: taller than speckle, shorter than rules/images
     glyph = heights[(heights >= 5) & (heights <= mask.shape[0] / 4)]
@@ -93,7 +94,7 @@ def _components_to_boxes(
     mask: np.ndarray, min_h: int, max_h: int, max_boxes: int
 ) -> list[DetectedBox]:
     labels, n = cc_label.label(mask)
-    counts, bboxes = cc_label.stats(labels, n)
+    counts, _, bboxes = cc_label.stats(labels, mask.astype(np.float32), n)
     boxes: list[DetectedBox] = []
     for comp in range(1, n + 1):
         x0, y0, x1, y1 = bboxes[comp]

@@ -56,6 +56,7 @@ from ocr_system_tpu_torch.engine.host_image import (
 from ocr_system_tpu_torch.engine.selection_marks import page_components
 from ocr_system_tpu_torch.kernels.enhance import CONTRAST, SHARPNESS, enhance_gray, gray_means, to_unit
 from ocr_system_tpu_torch.models.dbnet import DBNet
+from ocr_system_tpu_torch.native.ink_walk import ink_expand_batch
 from ocr_system_tpu_torch.ops import image_ops
 from ocr_system_tpu_torch.ops.boxes import (
     DetectedBox,
@@ -283,11 +284,17 @@ class Detector:
         h, w = pages[i].shape[:2]
         gray_page = rgb_to_gray(pages[i])
         if s.det_ink_snap or s.det_ink_expand:
-            # the numpy walk; the JAX package's native ink_walk copy is a
-            # later slice of the port
-            for b in boxes:
-                if quads_are_axis_aligned(b.quad[None]):
-                    _ink_snap(gray_page, b.quad, expand_only=not s.det_ink_snap)
+            aa = [b for b in boxes if quads_are_axis_aligned(b.quad[None])]
+            if s.det_ink_snap:
+                for b in aa:
+                    _ink_snap(gray_page, b.quad)
+            elif aa:
+                # expand-only serving path: one native call per page,
+                # without the GIL (the det/rec thread overlap goes on)
+                stack = np.stack([b.quad for b in aa])
+                ink_expand_batch(gray_page, stack)
+                for b, q in zip(aa, stack):
+                    b.quad[...] = q
         if boxes:
             stack = np.stack([b.quad for b in boxes])
             _pad_quads_batch(

@@ -186,8 +186,8 @@ class TorchOCREngine:
 
         if len(dets) <= 1:
             return [route_one(d) for d in dets]
-        # host work per page (ink components), GIL-releasing numpy/scipy;
-        # each page touches only its own DetResult
+        # host work per page (ink components), numpy and the native ops,
+        # which release the GIL; each page touches only its own DetResult
         with ThreadPoolExecutor(max_workers=min(8, len(dets))) as ex:
             return list(ex.map(route_one, dets))
 

@@ -85,10 +85,10 @@ def _ink(crop: np.ndarray) -> np.ndarray:
     return crop < (lo + hi) / 2.0
 
 
-def _component_boxes(labels: np.ndarray, n: int):
+def _component_boxes(labels: np.ndarray, ink: np.ndarray, n: int):
     """Per label (row 0 the background): int64 pixel counts and inclusive
-    x0, y0, x1, y1."""
-    cnt, bb = cc_label.stats(labels, n)
+    x0, y0, x1, y1, from one native ``stats`` pass over the ink mask."""
+    cnt, _, bb = cc_label.stats(labels, ink.astype(np.float32), n)
     bb = bb.astype(np.int64)
     return cnt, bb[:, 0], bb[:, 1], bb[:, 2], bb[:, 3]
 
@@ -166,7 +166,7 @@ def crop_script(crop: np.ndarray) -> str:
     labels, n = _label_components(ink)
     if n == 0:
         return "latin"
-    cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, n)
+    cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, ink, n)
     for ci in range(1, n + 1):
         if (cnt[ci] >= 12
                 and cx1[ci] - cx0[ci] + 1 >= 12
@@ -210,7 +210,7 @@ def page_script(page: np.ndarray, quads: np.ndarray, sample: int = 24) -> str:
     labels, n = _label_components(ink)
     if n == 0:
         return "latin"
-    cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, n)
+    cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, ink, n)
     # vote only over components WIDE enough to express a shirorekha
     # (w >= 1.8h; the run test needs 1.55x the ink height): a short word
     # cannot pass the test, so counting it as a "no" would read as Latin
@@ -531,7 +531,7 @@ def _split_multirow_boxes(gray: np.ndarray, boxes: list[DetectedBox]) -> list[De
             out.append(b)
             continue
         labels, n = _label_components(ink)
-        cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, n)
+        cnt, cx0, cy0, cx1, cy1 = _component_boxes(labels, ink, n)
         comp = [ci for ci in range(1, n + 1) if cnt[ci] >= 3 and cy1[ci] - cy0[ci] + 1 >= 2]
         if not comp:
             out.append(b)

@@ -36,9 +36,12 @@ def _ink_mask(page: np.ndarray) -> np.ndarray:
 
 def _components(mask: np.ndarray):
     """-> (labels, n, bboxes[n+1, 4] as x0,y0,x1,y1 inclusive), labels in
-    OpenCV's order."""
+    OpenCV's order: the native labelling, its renumbering and its
+    statistics, where the JAX package's serving branch calls
+    ``cv2.connectedComponentsWithStats``."""
     labels, n = cc_label.label_cv2(mask)
-    _, bboxes = cc_label.stats(labels, n)
+    _, _, bboxes = cc_label.stats(labels, mask.astype(np.float32), n)
+    bboxes[0] = 0  # the background's row, zero as the cv2 branch leaves it
     return labels, n, bboxes
 
 

@@ -5,7 +5,8 @@ PyTorch headers: a build takes seconds, not minutes) into one shared
 library under ``build/torch_kernels/<hash of the sources and flags>/`` at
 the repository root, on first use. The build writes a temporary name and
 ``os.replace``s it into place, so a killed build leaves nothing that a later
-run would load. The library is opened with ``ctypes``; pointers and the
+run would load (``native/build.compile_once``, shared with the native host
+library). The library is opened with ``ctypes``; pointers and the
 stream travel as ``c_void_p``.
 """
 
@@ -15,13 +16,13 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
 from ocr_system_tpu_torch.core.mesh import DATA_AXIS, shard_coords
+from ocr_system_tpu_torch.native.build import compile_once
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -92,17 +93,9 @@ def build() -> Path:
     library's path."""
     global build_log
     so = library_path()
-    if so.is_file():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    log = compile_once(so, [_nvcc(), *NVCC_FLAGS, *map(str, SOURCES)])
+    if log is not None:
+        build_log = log
     return so
 
 

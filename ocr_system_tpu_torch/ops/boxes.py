@@ -4,11 +4,14 @@ This is the host/device seam the SURVEY calls out (§7.3 "Host/device split
 for postprocessing"): the DBNet head produces a (H, W) shrink-probability map
 on device; turning that bitmap into polygons is connected-components +
 min-area-rect + unclip — control-flow heavy, tiny data (one byte map per
-page), so it runs on host in numpy, with scipy labelling the components.
+page), so it runs on host, over the port's native C++ components op
+(``native/cc_label.cpp``: one labelling and statistics call without the
+GIL).
 
-Port of ocr_system_tpu/ops/boxes.py: the numpy branches only (the JAX
-package prefers its native C++ CC op and OpenCV's minAreaRect where
-present; the port of those native copies is a later slice).
+Port of ocr_system_tpu/ops/boxes.py: the native op's branch for the
+components; for the min-area rectangle, the port of OpenCV's
+(``_min_area_rect_cv``). The numpy components of the JAX package's
+fallback are ``native/plain.py``.
 
 Algorithm follows "Real-time Scene Text Detection with Differentiable
 Binarization" (Liao et al., PAPERS.md): binarize at `bin_thresh`, label
@@ -26,6 +29,8 @@ import math
 
 import numpy as np
 
+from ocr_system_tpu_torch.native import cc_label
+
 
 @dataclasses.dataclass
 class DetectedBox:
@@ -38,11 +43,8 @@ class DetectedBox:
 
 
 def _label_components(binary: np.ndarray) -> tuple[np.ndarray, int]:
-    """8-connected components labeling (scipy.ndimage.label)."""
-    from scipy import ndimage
-
-    lab, n = ndimage.label(binary, structure=np.ones((3, 3), dtype=np.int32))
-    return lab.astype(np.int32), int(n)
+    """8-connected components labeling (the native op, raster order)."""
+    return cc_label.label(binary)
 
 
 def _row_extremes(xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
@@ -375,53 +377,15 @@ def _component_analysis(
     bboxes int32 (n+1, 4) x0,y0,x1,y1, moments (n+1, 5)
     sum_x,sum_y,sum_xx,sum_yy,sum_xy).
 
-    The numpy branch of the JAX package's implementation.
+    One native call (cc_analyze_u8: one labeling pass + one accumulate
+    pass, the GIL released for the whole call) in place of ~15 numpy
+    full-map passes that would serialize against the rec stage.
     """
     src = score_map if score_map is not None else prob_map
     if src is None:
         raise ValueError("need prob_map or score_map for component scoring")
     stride = score_stride if score_map is not None else 1
-
-    labels, n = _label_components(binary)
-    if n == 0:
-        z = np.zeros(1, np.float64)
-        return (
-            labels, 0, np.zeros(1, np.int64), z,
-            np.zeros((1, 4), np.int32), np.zeros((1, 5), np.float64),
-        )
-    flat = labels.reshape(-1)
-    if score_map is not None:
-        h, w = binary.shape
-        yy = (np.arange(h) // stride).clip(0, score_map.shape[0] - 1)
-        xx = (np.arange(w) // stride).clip(0, score_map.shape[1] - 1)
-        probs = score_map[np.ix_(yy, xx)].reshape(-1)
-    else:
-        probs = src.reshape(-1)
-    counts = np.bincount(flat, minlength=n + 1).astype(np.int64)
-    sums = np.bincount(flat, weights=probs, minlength=n + 1)
-    ys, xs = np.nonzero(binary)
-    comp_of = labels[ys, xs]
-    order = np.argsort(comp_of, kind="stable")
-    ys_s, xs_s, comp_s = ys[order], xs[order], comp_of[order]
-    starts = np.searchsorted(comp_s, np.arange(1, n + 1))
-    ends = np.append(starts[1:], len(comp_s))
-    bboxes = np.zeros((n + 1, 4), np.int32)
-    nz = np.nonzero(ends > starts)[0]
-    if len(nz):
-        s_nz = starts[nz]
-        bboxes[nz + 1, 0] = np.minimum.reduceat(xs_s, s_nz)
-        bboxes[nz + 1, 1] = np.minimum.reduceat(ys_s, s_nz)
-        bboxes[nz + 1, 2] = np.maximum.reduceat(xs_s, s_nz)
-        bboxes[nz + 1, 3] = np.maximum.reduceat(ys_s, s_nz)
-    xf = xs.astype(np.float64)
-    yf = ys.astype(np.float64)
-    moments = np.zeros((n + 1, 5), np.float64)
-    moments[:, 0] = np.bincount(comp_of, weights=xf, minlength=n + 1)
-    moments[:, 1] = np.bincount(comp_of, weights=yf, minlength=n + 1)
-    moments[:, 2] = np.bincount(comp_of, weights=xf * xf, minlength=n + 1)
-    moments[:, 3] = np.bincount(comp_of, weights=yf * yf, minlength=n + 1)
-    moments[:, 4] = np.bincount(comp_of, weights=xf * yf, minlength=n + 1)
-    return labels, n, counts, sums, bboxes, moments
+    return cc_label.analyze(binary, src, stride=stride)
 
 
 def boxes_from_prob_map(

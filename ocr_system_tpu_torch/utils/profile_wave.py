@@ -46,8 +46,12 @@ _HOST = (
     ("classical_detector.py", "_detect_one"),
     ("hybrid_detector.py", "detect_batch"),
     ("host_image.py", "adaptive_threshold"),
-    ("cc_label.py", "label"),
-    ("cc_label.py", "label_cv2"),
+    # the native host ops (native/*.cpp through ctypes), by binding
+    ("native/cc_label.py", "label"),
+    ("native/cc_label.py", "label_cv2"),
+    ("native/cc_label.py", "stats"),
+    ("native/cc_label.py", "analyze"),
+    ("native/ink_walk.py", "ink_expand_batch"),
     ("selection_marks.py", "page_components"),
     ("selection_marks.py", "detect_selection_marks"),
     ("handwriting.py", "detect_handwriting"),

@@ -1,7 +1,8 @@
 """The port's host image operations against OpenCV and the JAX package's
 native op: the adaptive thresholds, the dilation, the float64 resize and
-connected components in both label orders, bit for bit on seeded
-inputs."""
+the plain versions of connected components (``native/plain.py``) in both
+label orders, bit for bit on seeded inputs (the native ops themselves:
+tests/test_torch_native.py)."""
 
 import cv2
 import numpy as np
@@ -10,7 +11,7 @@ import torch
 
 from ocr_system_tpu.native import cc_label as jax_cc
 from ocr_system_tpu_torch.engine import host_image
-from ocr_system_tpu_torch.native import cc_label
+from ocr_system_tpu_torch.native import plain
 
 torch.set_num_threads(1)
 
@@ -91,10 +92,10 @@ CC_CASES = [((301, 401), 0.3), ((301, 401), 0.5), ((301, 401), 0.6), ((960, 742)
 @pytest.mark.parametrize("shape,density", CC_CASES, ids=str)
 def test_cc_raster_order_matches_native(shape, density):
     mask = (np.random.default_rng(shape[0] + int(density * 10)).random(shape) < density).astype(np.uint8)
-    labels, n = cc_label.label(mask)
+    labels, n = plain.label(mask)
     want, want_n = jax_cc.label(mask)
     assert n == want_n and np.array_equal(labels, want)
-    counts, bboxes = cc_label.stats(labels, n)
+    counts, _, bboxes = plain.stats(labels, mask.astype(np.float32), n)
     want_counts, _, want_boxes = jax_cc.stats(want, mask.astype(np.float32), want_n)
     assert np.array_equal(counts[1:], want_counts[1:])
     assert np.array_equal(bboxes[1:], want_boxes[1:])
@@ -103,10 +104,10 @@ def test_cc_raster_order_matches_native(shape, density):
 @pytest.mark.parametrize("shape,density", CC_CASES, ids=str)
 def test_cc_cv2_order_matches_cv2(shape, density):
     mask = (np.random.default_rng(shape[1] + int(density * 10)).random(shape) < density).astype(np.uint8)
-    labels, n = cc_label.label_cv2(mask)
+    labels, n = plain.label_cv2(mask)
     n_all, want, st, _ = cv2.connectedComponentsWithStats(mask, connectivity=8)
     assert n == n_all - 1 and np.array_equal(labels, want)
-    counts, bboxes = cc_label.stats(labels, n)
+    counts, _, bboxes = plain.stats(labels, mask.astype(np.float32), n)
     assert np.array_equal(counts[1:], st[1:, cv2.CC_STAT_AREA])
     x, y = st[1:, cv2.CC_STAT_LEFT], st[1:, cv2.CC_STAT_TOP]
     x1, y1 = x + st[1:, cv2.CC_STAT_WIDTH] - 1, y + st[1:, cv2.CC_STAT_HEIGHT] - 1
@@ -117,7 +118,7 @@ def test_cc_orders_differ_on_a_page_mask():
     """The two orders are different functions on a real ink mask (so each
     caller needs its own): the adaptive mask of a seeded page."""
     mask = host_image.adaptive_threshold(_page(301, 401, 5), "mean")
-    a, n = cc_label.label(mask)
-    b, m = cc_label.label_cv2(mask)
+    a, n = plain.label(mask)
+    b, m = plain.label_cv2(mask)
     assert n == m > 100 and not np.array_equal(a, b)
     assert np.array_equal(a > 0, b > 0)

@@ -77,13 +77,18 @@ mix = cs.phase_hybrid(hybrid, mixed, first_m, 1.0, 1.0, "mixed", routing_equal=T
                       min_hindi_text=1.0)
 sch = cs.phase_scheduler(hybrid, pages(small + small[:1]))
 host = cs.phase_host_ops(small[0], iters=1)
+# the native host library against its plain versions on the served inputs
+nat = cs.phase_native(smoke.build_engine("cpu", **smoke.NEURAL, **tiny, det_prob_wire_bits=4),
+                      small[:2], iters=1)
+assert nat["pages"] == 2 and nat["boxes"] > 0, nat
+assert all(r["unequal"] == 0 and r["cases"] == 4 for r in nat["ops"].values()), nat
 # glue split at the served rec settings, against the committed JAX record
 glue = cs.phase_glue(smoke.build_engine("cpu", **smoke.NEURAL), "bfloat16")
 assert sch["waves"] == 2 and sch["retried_pages"] == 0, sch
 assert eng["words"] > 0 and hyb["words"] == hyb["words_matched"] > 0, (eng, hyb)
 assert hyb["text_share_vs"] == {"itself": 1.0}, hyb
 assert set(hyb["stage_ms"]) >= {"det_neural", "det_classical", "glue", "finish"}, hyb
-assert len(host["ms"]) == 8, host
+assert len(host["ms"]) == 11 and host["ms"]["cc_stats_native"] > 0, host
 assert glue["boxes_after"] > glue["lines"] and glue["texts_equal"], glue
 assert mix["devanagari_words"] > 0 and mix["devanagari_dispatch"]["dispatches"] > 0, mix
 assert sum(r["confidence"][0] for r in mix["rescued"]) > 0 and all(mix["rescued_ok"]), mix
@@ -190,7 +195,8 @@ ALLOWED = {("ocr_system_tpu_torch/engine/preprocess.py", "decode_image", "PIL")}
     ("ocr_system_tpu_torch/training/synth_forms.py", "render_spec", "PIL"),
     ("ocr_system_tpu_torch/training/devanagari_font.py", "build_font", "fontTools"),
     ("chip_smoke.py", "pil_version", "PIL"),  # the service phase reports whether PIL imports
-    ("chip_smoke.py", "phase_fonts", "PIL")}  # the fonts phase reports PIL's FreeType
+    ("chip_smoke.py", "phase_fonts", "PIL"),  # the fonts phase reports PIL's FreeType
+    ("ocr_system_tpu_torch/utils/demo.py", "render_invoice", "PIL")}  # the demo draws its page
 
 
 def _imports(path: Path):
@@ -241,3 +247,24 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+# the native host ops and the entry points of the JAX package's scripts:
+# the standard library (ctypes for the bindings), numpy, scipy for the
+# plain versions, and the port itself; PIL only where ALLOWED says
+NEW_MODULES = {
+    "native/build.py": set(), "native/cc_label.py": {"numpy"}, "native/ink_walk.py": {"numpy"},
+    "native/plain.py": {"numpy", "scipy"}, "db/init_db.py": set(), "db/db_admin.py": set(),
+    "utils/debug_engine.py": set(), "utils/demo.py": {"PIL"},
+    "training/compare_extractors.py": set(), "training/diag_forms.py": {"numpy"},
+    "training/diag_hindi.py": {"numpy"}, "training/diag_extract_pipeline.py": {"numpy"},
+    "training/diag_one_doc.py": {"numpy"},
+}
+
+
+def test_new_modules_import_only_the_standard_library():
+    for rel, extra in NEW_MODULES.items():
+        mods = {m for _, m in _imports(PORT / rel)}
+        others = mods - set(sys.stdlib_module_names) - {"ocr_system_tpu_torch", "__future__"}
+        assert others == extra, (rel, others)
+    assert "ctypes" in {m for _, m in _imports(PORT / "native/build.py")}

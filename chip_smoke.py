@@ -862,6 +862,192 @@ def phase_service(app, orch, data: bytes, expected: dict, tag: str, exact: bool,
     return row
 
 
+def phase_breakdown(engine, pages, want_records: list[dict], tag: str, smi: str = "") -> dict:
+    """``utils/profiler.det_rec_breakdown`` on one wave through the served
+    engine: every key it returns, the card's name and power limit, and the
+    kernels' launches during it. Gates: det_mfu and rec_mfu in (0, 1], both
+    kernels launched, and the wave's words (text and box) equal to the wave
+    phase's records of the same pages (``want_records``)."""
+    from ocr_system_tpu_torch.utils.profiler import det_rec_breakdown
+    from ocr_system_tpu_torch.utils.smoke import page_record
+
+    outs = []
+    rec_stage = engine.rec_stage
+
+    def capture(pages_, dets, t0=None):  # the breakdown's own wave output
+        out = rec_stage(pages_, dets, t0)
+        outs.append(out)
+        return out
+
+    engine.rec_stage = capture
+    reset_counts()
+    try:
+        t = time.perf_counter()
+        bd = det_rec_breakdown(engine, pages)
+        sec = time.perf_counter() - t
+        launched = counts()
+    finally:
+        del engine.rec_stage
+    check_outputs(outs[0], pages)
+    records = [page_record(*r) for r in zip(outs[0], engine.routed, engine.rescued)]
+    same = [r["word"] == w["word"] for r, w in zip(records, want_records)]
+    row = {"phase": tag, **bd, "nvidia_smi": smi, "launches": launched,
+           "words_equal_wave_phase": same, "breakdown_s": sec}
+    failed = []
+    for key in ("det_mfu", "rec_mfu"):
+        if not 0.0 < row.get(key, 0.0) <= 1.0:
+            failed.append(f"{key} {row.get(key)} not in (0, 1]")
+    if launched["enhance"] <= 0 or launched["crop"] <= 0:
+        failed.append(f"kernels not launched during the breakdown: {launched}")
+    if len(records) != len(want_records) or not all(same):
+        failed.append(f"the breakdown's words differ from the wave phase's: {same}")
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    return row
+
+
+def trace_kernels(path: str) -> list[tuple[str, float]]:
+    """The CUDA kernel events of a Chrome trace: (name, duration us)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["dur"])) for e in events
+            if e.get("cat") == "kernel" and "dur" in e]
+
+
+def phase_trace(engine, pages, out_dir: str, smi: str = "") -> dict:
+    """``utils/profiler.device_trace`` around one wave through the served
+    engine, written into ``out_dir`` (then gzipped). Gate: the trace holds
+    CUDA kernel events, the enhance and crop kernels among them. Reports the
+    device's busy share over the wave (the union of the trace's kernel
+    intervals over the wave's wall time) and the kernel time by name."""
+    import glob
+    import gzip
+    import shutil
+
+    import torch
+
+    from ocr_system_tpu_torch.utils.profile_wave import device_busy_ms
+    from ocr_system_tpu_torch.utils.profiler import device_trace
+
+    os.makedirs(out_dir, exist_ok=True)
+    before = set(glob.glob(os.path.join(out_dir, "*.json")))
+    reset_counts()
+    with device_trace(out_dir, engine.recognizer.device) as prof:
+        t = time.perf_counter()
+        engine.process_pages(pages)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    launched = counts()
+    (path,) = set(glob.glob(os.path.join(out_dir, "*.json"))) - before
+    spans = trace_kernels(path)
+    by_name: dict[str, float] = {}
+    for name, d in spans:
+        by_name[name] = by_name.get(name, 0.0) + d / 1e3
+    busy = device_busy_ms(prof)
+    size = os.path.getsize(path)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    row = {"phase": "trace", "nvidia_smi": smi, "trace": os.path.relpath(path + ".gz", REPO),
+           "trace_mb": size / 1e6, "kernel_events": len(spans), "launches": launched,
+           "wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_busy_share": busy / wall_ms, "device_idle_share": 1.0 - busy / wall_ms,
+           "kernel_ms_top": sorted(by_name.items(), key=lambda kv: -kv[1])[:12]}
+    missing = [k for k in ("enhance_kernel", "crop_kernel")
+               if not any(k in name for name, _ in spans)]
+    if not spans or missing:
+        emit({**row, "failed": missing})
+        raise AssertionError(f"trace: no CUDA kernel events for {missing or 'any kernel'}")
+    return row
+
+
+CHAIN_TOL = 1e-5  # preprocess_chain: the card's image against the CPU's
+
+
+def phase_preprocess_chain(dev, forms: np.ndarray, smi: str = "") -> dict:
+    """``ops/image_ops.preprocess_page`` on the committed forms at 960, each
+    turned by a seeded angle in +-10 degrees (the first under 0.5, which the
+    deskew gate leaves alone), in all 8 flag combinations, on the card and
+    with the same inputs on the CPU. Gate: the angle equal and the image
+    within ``CHAIN_TOL``. Reports the card's ms per page (CUDA events, one
+    call each, after one warm-up call)."""
+    import itertools
+
+    import torch
+
+    from ocr_system_tpu_torch.engine.host_image import rotate_cubic
+    from ocr_system_tpu_torch.ops.image_ops import preprocess_page
+
+    rng = np.random.default_rng(SEED)
+    angles = rng.uniform(-10.0, 10.0, len(forms))
+    angles[0] = rng.uniform(-0.45, 0.45)
+    pages = [torch.from_numpy(rotate_cubic(f, float(a))).float() / 255.0
+             for f, a in zip(forms, angles)]
+    preprocess_page(pages[1].to(dev))  # warm-up: cuFFT plans
+    torch.cuda.synchronize()
+    rows, failed, worst = {}, [], 0.0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for flags in itertools.product((False, True), repeat=3):
+        ms, applied = [], []
+        for k, page in enumerate(pages):
+            x = page.to(dev)
+            start.record()
+            got, got_angle = preprocess_page(x, *flags)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            want, want_angle = preprocess_page(page, *flags)
+            diff = float((got.cpu() - want).abs().max())
+            worst = max(worst, diff)
+            applied.append(float(got_angle))
+            if float(got_angle) != float(want_angle) or diff > CHAIN_TOL:
+                failed.append(f"{flags} page {k}: angle {float(got_angle)} / "
+                              f"{float(want_angle)}, max diff {diff}")
+        name = "deskew%d_contrast%d_binarize%d" % flags
+        rows[name] = {"ms_per_page_median": float(np.median(ms)), "ms_per_page": ms,
+                      "angles": applied}
+    row = {"phase": "preprocess_chain", "nvidia_smi": smi, "pages": len(pages),
+           "size": list(pages[0].shape), "turned_by": angles.tolist(), "tol": CHAIN_TOL,
+           "max_abs_diff": worst, "flags": rows}
+    if failed:
+        emit({**row, "failed": failed})
+        raise AssertionError("preprocess_chain: " + "; ".join(failed))
+    return row
+
+
+def phase_text_pdf(smi: str = "") -> dict:
+    """The PDF parity tests' text PDF through ``engine/pdf.render_pdf`` on
+    this machine. Gate: the text was drawn in the package's DejaVu Sans
+    (``assets/fonts/DejaVuSans*.ttf``, ``pdf.FONTS_SERVED``). Reported,
+    ungated: the share of pixels equal to the render committed from the
+    JAX package on a host with raqm (``utils/smoke.TEXT_PDF_RENDER``); this
+    machine's PIL lays text out glyph by glyph."""
+    from ocr_system_tpu_torch.engine import pdf
+    from ocr_system_tpu_torch.utils import smoke
+
+    pdf.FONTS_SERVED.clear()
+    t = time.perf_counter()
+    page = pdf.render_pdf(smoke.text_pdf(), dpi=smoke.TEXT_PDF_DPI)[0]
+    sec = time.perf_counter() - t
+    served = dict(pdf.FONTS_SERVED)
+    want = smoke.text_pdf_render()
+    package = os.path.realpath(pdf.FONT_DIRS[0])
+    ok = bool(served) and all(
+        os.path.realpath(p).startswith(package + os.sep)
+        and os.path.basename(p) in ("DejaVuSans.ttf", "DejaVuSans-Bold.ttf") for p in served)
+    row = {"phase": "service_text_pdf", "nvidia_smi": smi, "fonts_served": served,
+           "package_fonts": ok, "shape": list(page.shape), "render_s": sec,
+           "pixels_equal_share": (float((page[..., 0] == want).mean())
+                                  if page.shape[:2] == want.shape else None),
+           "ink_pixels": int((page[..., 0] < 128).sum()),
+           "ink_pixels_committed": int((want < 128).sum())}
+    if not ok:
+        emit({**row, "failed": "the text was not drawn in the package's DejaVu"})
+        raise AssertionError(f"service_text_pdf: fonts served {served}")
+    return row
+
+
 def phase_host_ops(page, iters: int = 3) -> dict:
     """ms per page on this host for the host image operations the hybrid
     path runs (median of ``iters``): the Gaussian threshold (classical
@@ -2303,9 +2489,10 @@ def main() -> int:
     t = time.perf_counter()
     hybrid = smoke.build_engine(dev, **expected["settings"], compute_dtype="bfloat16")
     hybrid.process_pages(as_pages(forms[:2]))  # first call: cuDNN/cuBLAS set-up
+    h16_records, m16_records = [], []
     h16 = phase_hybrid(hybrid, as_pages(forms), want["bfloat16"], smoke.BF16_WORD_SHARE, 0.98,
                        "hybrid_bf16", leaders_any_length=True,
-                       also={"jax_float32": want["float32"]})
+                       also={"jax_float32": want["float32"]}, records_out=h16_records)
     emit({**h16, "elapsed_s": time.perf_counter() - t})
 
     # ---- phase 6a: the mixed wave in bf16, its Hindi pages gated too ----
@@ -2313,8 +2500,20 @@ def main() -> int:
     m16 = phase_hybrid(hybrid, mixed, expected["mixed"]["bfloat16"], smoke.BF16_WORD_SHARE,
                        0.98, "mixed_bf16", leaders_any_length=True,
                        also={"jax_float32": expected["mixed"]["float32"]},
-                       hindi=len(hindi), min_hindi_text=0.95)
+                       hindi=len(hindi), min_hindi_text=0.95, records_out=m16_records)
     emit({**m16, "elapsed_s": time.perf_counter() - t})
+
+    # ---- phase 6a': det and rec device time, FLOPs and MFU of each bf16
+    # wave (utils/profiler.det_rec_breakdown), then a device trace of the
+    # Latin wave (utils/profiler.device_trace) ----
+    for wave, records, tag in ((as_pages(forms), h16_records, "breakdown_latin"),
+                               (mixed, m16_records, "breakdown_mixed")):
+        t = time.perf_counter()
+        emit({**phase_breakdown(hybrid, wave, records, tag, smi=smi),
+              "elapsed_s": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({**phase_trace(hybrid, as_pages(forms), os.path.join(REPO, "build", "trace"),
+                        smi=smi), "elapsed_s": time.perf_counter() - t})
 
     # ---- phase 6b: glue split's re-recognition, at both dtypes ----
     for engine, dtype in ((hybrid32, "float32"), (hybrid, "bfloat16")):
@@ -2368,6 +2567,7 @@ def main() -> int:
                                   dtype == "float32", smi=smi),
                   "elapsed_s": time.perf_counter() - t})
             orch.repos.db.close()
+    emit(phase_text_pdf(smi=smi))
     del hybrid32, extractors
 
     # ---- phase 7: the Latin wave, then the mixed wave, through the
@@ -2377,8 +2577,11 @@ def main() -> int:
     sch = phase_scheduler(hybrid, as_pages([*forms, *hindi, *forms[:expected["mixed_latin"]]]))
     emit({**sch, "elapsed_s": time.perf_counter() - t})
 
-    # ---- phase 8: the host image operations on one form ----
+    # ---- phase 8: the host image operations on one form, then the
+    # on-device page preprocessing chain on the card against the CPU ----
     emit(phase_host_ops(forms[1]))
+    t = time.perf_counter()
+    emit({**phase_preprocess_chain(dev, forms, smi=smi), "elapsed_s": time.perf_counter() - t})
     del hybrid
 
     # ---- phase 8a: the entry points of the JAX package's scripts ----

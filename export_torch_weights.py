@@ -2,7 +2,7 @@
 """Carry the trained weights and a set of real forms over to the PyTorch
 port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
-    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train|eval]
+    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train|eval|text_pdf]
 
 Writes, in ocr_system_tpu_torch/:
 
@@ -93,6 +93,11 @@ Writes, in ocr_system_tpu_torch/:
   the events in eval_expected.json, the images and quads in
   assets/eval_renders.npz. ``--only eval`` writes just these two
   (~10 min).
+
+- assets/text_pdf_render.npz: the gray plane of the JAX package's
+  render_pdf of utils/smoke.text_pdf() at TEXT_PDF_DPI, on this host's
+  DejaVu and PIL (with raqm); chip_smoke.py reports the card's share of
+  equal pixels. ``--only text_pdf`` writes just this (~1 s).
 
 chip_smoke.py loads all of them and holds the port against the JAX
 package on the card. This tool imports JAX, so it stays outside the
@@ -731,8 +736,19 @@ def export_eval() -> list[Path]:
     return [smoke.EVAL_EXPECTED, smoke.EVAL_RENDERS]
 
 
+def export_text_pdf() -> list[Path]:
+    """assets/text_pdf_render.npz (module doc)."""
+    from ocr_system_tpu.engine.pdf import render_pdf
+    from ocr_system_tpu_torch.utils import smoke
+
+    page = render_pdf(smoke.text_pdf(), dpi=smoke.TEXT_PDF_DPI)[0]
+    np.savez_compressed(smoke.TEXT_PDF_RENDER, gray=np.ascontiguousarray(page[..., 0]))
+    return [smoke.TEXT_PDF_RENDER]
+
+
 def main() -> int:
-    only = {"service": export_service, "train": export_train, "eval": export_eval}
+    only = {"service": export_service, "train": export_train, "eval": export_eval,
+            "text_pdf": export_text_pdf}
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] and sys.argv[2] in only:
         for path in only[sys.argv[2]]():
             print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")

@@ -15,6 +15,8 @@ engine/recognizer.py).
   ``THRESH_BINARY_INV`` and a replicated border, for the Gaussian and the
   mean window, bit for bit (see the function).
 - ``dilate``: ``cv2.dilate`` with a rectangle of ones, anchor at its centre.
+- ``resize_bicubic_pil``: PIL's ``Image.resize`` with its default BICUBIC
+  filter on uint8, bit for bit (see the function).
 """
 
 from __future__ import annotations
@@ -121,6 +123,71 @@ def _resize_linear_f64(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     ya, yb, ty = _float_taps(nh, h)
     rows = _lerp_fma(img[:, xa], img[:, xb], tx[None, :])
     return _lerp_fma(rows[ya], rows[yb], ty[:, None])
+
+
+_PIL_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients for 8-bit images
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic filter (a = -0.5), support 2."""
+    x = np.abs(x)
+    a = -0.5
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's resampling taps along one axis (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc``): per output pixel the first source index and
+    the fixed-point weights of its taps (zero past the window's end). The
+    filter's support widens by the scale when reducing; the window is
+    rounded by C truncation, the weights normalised to sum 1 in float64 and
+    rounded half away from zero to 22 fractional bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    w = _pil_bicubic((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) / filterscale)
+    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
+    # PIL sums the weights in order and divides each by the (nonzero) sum
+    ww = np.zeros(out_size)
+    for k in range(ksize):
+        ww += w[:, k]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    scaled = w * (1 << _PIL_PRECISION_BITS)
+    kk = np.trunc(np.where(w < 0, scaled - 0.5, scaled + 0.5)).astype(np.int64)
+    return xmin, kk
+
+
+def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One separable pass of PIL's 8-bit resampling along ``axis``: integer
+    sums from a half-unit start, shifted by 22 bits and clipped to 0..255."""
+    xmin, kk = _pil_coeffs(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size, *src.shape[1:]), 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    extra = (1,) * (src.ndim - 1)
+    for k in range(kk.shape[1]):
+        idx = np.minimum(xmin + k, img.shape[axis] - 1)  # past the window the weight is 0
+        acc += src[idx] * kk[:, k].reshape(-1, *extra)
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic_pil(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W[, C]) -> (nh, nw[, C]) as ``PIL.Image.resize(size)``
+    writes it (BICUBIC, its default): the horizontal pass first, into
+    uint8, then the vertical pass, each skipped where its size is kept."""
+    nh, nw = out_hw
+    out = img
+    if nw != img.shape[1]:
+        out = _pil_pass(out, 1, nw)
+    if nh != img.shape[0]:
+        out = _pil_pass(out, 0, nh)
+    return np.ascontiguousarray(out)
 
 
 def gaussian_kernel_f32(n: int) -> np.ndarray:

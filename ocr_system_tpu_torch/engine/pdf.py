@@ -32,8 +32,12 @@ target.
 
 from __future__ import annotations
 
+import collections
 import io
+import os
 import re
+import sysconfig
+import threading
 import zlib
 from dataclasses import dataclass, field
 
@@ -45,6 +49,17 @@ __all__ = ["render_pdf", "PdfError"]
 # 20k px ≈ 67 inches at 300 DPI — beyond any legitimate document, and it
 # caps a single allocation at ~400 MB even for a hostile MediaBox/CTM.
 MAX_PAGE_PX = 20_000
+# where the text renderer looks for DejaVu, in order: the package's fonts
+# (assets/fonts), then the system's and matplotlib's copies
+FONT_DIRS = (
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "fonts"),
+    "/usr/share/fonts/truetype/dejavu",
+    os.path.join(sysconfig.get_paths()["purelib"], "matplotlib", "mpl-data", "fonts", "ttf"),
+)
+# font files the text renderer loaded in this process, by path ("PIL
+# default" for the bitmap fallback), one count per size and weight
+FONTS_SERVED: collections.Counter = collections.Counter()
+_FONTS_LOCK = threading.Lock()
 
 
 class PdfError(ValueError):
@@ -764,23 +779,30 @@ class _PageRenderer:
     # -- fonts --
 
     def _pil_font(self, bold: bool, px: int):
+        """DejaVu Sans (bold) at ``px`` from the first of ``FONT_DIRS`` that
+        holds it (the package's copy first, so that a machine without system
+        fonts draws the same glyphs); PIL's bitmap default only for a font in
+        none of them. ``FONTS_SERVED`` counts each file that served."""
         from PIL import ImageFont
 
         px = max(min(px, 512), 4)
         key = (bold, px)
         if key not in self._font_cache:
             name = "DejaVuSans-Bold.ttf" if bold else "DejaVuSans.ttf"
-            for root in (
-                "/usr/share/fonts/truetype/dejavu/",
-                "/opt/venv/lib/python3.12/site-packages/matplotlib/mpl-data/fonts/ttf/",
-            ):
+            for root in FONT_DIRS:
                 try:
-                    self._font_cache[key] = ImageFont.truetype(root + name, px)
-                    break
+                    font = ImageFont.truetype(os.path.join(root, name), px)
                 except OSError:
                     continue
+                # PIL looks a missing file up by name in the system's font
+                # directories: its path is the file that served
+                path = font.path
+                break
             else:
-                self._font_cache[key] = ImageFont.load_default()
+                font, path = ImageFont.load_default(), "PIL default"
+            self._font_cache[key] = font
+            with _FONTS_LOCK:
+                FONTS_SERVED[path] += 1
         return self._font_cache[key]
 
     def _font_info(self, res: dict, name: str) -> FontInfo:

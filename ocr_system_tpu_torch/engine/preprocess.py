@@ -4,7 +4,8 @@ processed pages for the review UI, bucket assignment.
 
 PIL is imported only inside ``decode_image``: the rest of the port runs
 without it. JPEG encoding is first-party (``engine/jpeg.py``), so the save
-stage runs without PIL too.
+stage and ``compress_to_limit`` (whose halving is PIL's bicubic resize in
+numpy, ``engine/host_image.resize_bicubic_pil``) run without PIL too.
 
 PDF rasterization has the JAX package's three tiers: pdf2image/poppler
 when installed, else the first-party content-stream renderer
@@ -25,7 +26,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ocr_system_tpu_torch.engine.jpeg import encode_jpeg  # noqa: F401  (the save stage's)
+from ocr_system_tpu_torch.engine.host_image import resize_bicubic_pil
+from ocr_system_tpu_torch.engine.jpeg import encode_jpeg
 
 # documents each rasterization tier served in this process: "poppler",
 # "render" (engine/pdf.py) and "embedded" (_pdf_extract_images)
@@ -60,6 +62,24 @@ def decode_image(data: bytes, orient: bool = True) -> np.ndarray:
     if img.mode != "RGB":
         img = img.convert("RGB")
     return np.asarray(img, dtype=np.uint8)
+
+
+def compress_to_limit(pixels: np.ndarray, max_bytes: int = 2 * 1024 * 1024) -> bytes:
+    """Iterative JPEG compression to a byte budget (the reference's
+    compress_for_azure): quality 95 down to 35 in steps of 10, then halve
+    the size (floor, at least 64 a side) and encode at quality 60 until the
+    bytes fit or the width is 64. The bytes are PIL's for the same steps."""
+    for quality in range(95, 25, -10):
+        data = encode_jpeg(pixels, quality)
+        if len(data) <= max_bytes:
+            return data
+    img = pixels
+    while True:
+        h, w = img.shape[:2]
+        img = resize_bicubic_pil(img, (max(h // 2, 64), max(w // 2, 64)))
+        data = encode_jpeg(img, 60)
+        if len(data) <= max_bytes or img.shape[1] <= 64:
+            return data
 
 
 # ---- minimal PDF raster ----

@@ -15,6 +15,7 @@ JAX package, a split stack is never compacted.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,6 +59,10 @@ class Recognizer:
         self.model = SVTRRecognizer(vocab_size=self.charset.size, policy=policy)
         load_weights(self.model, s.rec_checkpoint, state_dict, seed)
         self.model.to(self.device).eval()
+        # when set (a list), every dispatch appends its device work as a
+        # closure over device tensors, so a profiler can re-run the wave's
+        # dispatches and time rec device work (utils/profiler.det_rec_breakdown)
+        self._profile_stash: list | None = None
 
     # ---- public API ----
 
@@ -137,22 +142,39 @@ class Recognizer:
                     axis_aligned, [k - lo for k in rows if lo <= k < lo + r]))
         return tuple(all_gather([o[j] for o in outs], device=self.device) for j in range(2))
 
-    @torch.inference_mode()
     def _run_device(self, model: SVTRRecognizer, stack_dev: torch.Tensor, quads: np.ndarray,
                     w_valid: np.ndarray, bucket: int, axis_aligned: bool, rows: list[int]):
-        """``_run`` on one device's stack."""
-        h = self.settings.rec_image_height
+        """``_run`` on one device's stack: the host work (boxes, copies to
+        the device), then ``_dispatch``, stashed as a closure over device
+        tensors where a profiler set ``_profile_stash``."""
         dev = stack_dev.device
         n_pages, n_per_page = w_valid.shape
         widths = torch.from_numpy(w_valid).to(dev)
         if axis_aligned:
-            aabbs = quads_to_aabbs(quads.reshape(-1, 4, 2)).reshape(n_pages, n_per_page, 4)
+            boxes = quads_to_aabbs(quads.reshape(-1, 4, 2)).reshape(n_pages, n_per_page, 4)
+        else:
+            boxes = quads
+        run = functools.partial(self._dispatch, model, stack_dev,
+                                torch.from_numpy(boxes).to(dev), widths, bucket,
+                                axis_aligned, rows)
+        if self._profile_stash is not None:
+            self._profile_stash.append(run)
+        return run()
+
+    @torch.inference_mode()
+    def _dispatch(self, model: SVTRRecognizer, stack_dev: torch.Tensor, boxes: torch.Tensor,
+                  widths: torch.Tensor, bucket: int, axis_aligned: bool, rows: list[int]):
+        """The device work of one group: crops (the kernel for (P, N, 4)
+        aabbs, the quad gather for (P, N, 4, 2) quads), SVTR, greedy CTC
+        decode -> (ids, conf) on the device."""
+        h = self.settings.rec_image_height
+        if axis_aligned:
             # the kernel folds /255, the pad mask and the cast to the
             # compute dtype into the crop
-            crops = crop_boxes(stack_dev, torch.from_numpy(aabbs).to(dev),
-                               widths, (h, bucket), model.policy.compute_dtype)
+            crops = crop_boxes(stack_dev, boxes, widths, (h, bucket),
+                               model.policy.compute_dtype)
         else:
-            crops = quad_crops(stack_dev, torch.from_numpy(quads).to(dev), rows, (h, bucket))
+            crops = quad_crops(stack_dev, boxes, rows, (h, bucket))
             crops = _mask_pad(crops, widths.reshape(-1))
         crops = crops[:, None].expand(-1, 3, -1, -1)
         logits, lengths = model.forward_nchw(crops, widths.reshape(-1))

@@ -193,3 +193,19 @@ def _build_table(
         polygon=[x0, y0, x1, y0, x1, y1, x0, y1],
         page_number=page_number,
     )
+
+
+def extract_table_fields(tables: list[Table]) -> list:
+    """Tables -> ExtractedFields of type 'table' (markdown value), matching
+    how the reference persists Azure tables through the Gemini path."""
+    from ocr_system_tpu_torch.extract.types import ExtractedField
+
+    return [
+        ExtractedField(
+            field_key=f"Table {i + 1}",
+            field_value=t.to_markdown(),
+            field_type="table",
+            confidence=0.9,
+        )
+        for i, t in enumerate(tables)
+    ]

@@ -1,9 +1,12 @@
-"""Page enhancement, adaptive binarization and skew estimation as tensor
-ops (port of the det-path half of ocr_system_tpu/ops/image_ops.py).
+"""The page preprocessing chain as tensor ops (port of
+ocr_system_tpu/ops/image_ops.py): resize and letterbox, enhancement,
+median denoise, adaptive binarization, skew estimation and deskew, and the
+whole chain (``preprocess_page``, the reference's preprocess_for_azure
+minus its codec steps).
 
-Images are float32 in [0, 1]: (H, W) gray or (H, W, 3) RGB, as in the JAX
-module. ``estimate_skew_angle`` takes a batch (B, H, W) of gray pages and
-runs wherever its input lies.
+Images are float32 in [0, 1]: (H, W) gray or (H, W, 3) RGB (channel last),
+as in the JAX module. ``estimate_skew_angle`` takes a batch (B, H, W) of
+gray pages. Everything runs wherever its input lies.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ocr_system_tpu_torch.ops.sampling import rotate
+
 # ImageNet-ish normalization used by the det/rec models (PP-OCR convention).
 NORM_MEAN = (0.485, 0.456, 0.406)
 NORM_STD = (0.229, 0.224, 0.225)
@@ -23,8 +28,34 @@ def to_grayscale(img: torch.Tensor) -> torch.Tensor:
     """(H, W, 3) RGB [0,1] -> (H, W) luma; (H, W) passes through."""
     if img.dim() == 2:
         return img
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
-    return img @ w
+    # elementwise in a fixed order, so every device rounds it alike (a
+    # matmul's order is the library's)
+    return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """(H, W[, C]) -> (out_h, out_w[, C]) bilinear with half-pixel centres,
+    antialiased when downscaling (the triangle kernel widened by the
+    scale), as ``jax.image.resize(method="bilinear")``."""
+    x = img[None, None] if img.dim() == 2 else img.permute(2, 0, 1)[None]
+    out = F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear",
+                        align_corners=False, antialias=True)[0]
+    return out[0] if img.dim() == 2 else out.permute(1, 2, 0)
+
+
+def letterbox(img: torch.Tensor, target_hw: tuple[int, int],
+              fill: float = 0.0) -> tuple[torch.Tensor, float]:
+    """Aspect-preserving resize into a (target_h, target_w) canvas, top-left
+    anchored, padded with ``fill``. Returns (canvas, scale)."""
+    th, tw = target_hw
+    h, w = img.shape[0], img.shape[1]
+    scale = min(th / h, tw / w)
+    nh, nw = max(int(round(h * scale)), 1), max(int(round(w * scale)), 1)
+    resized = resize_bilinear(img, (nh, nw))
+    canvas = torch.full((th, tw, *img.shape[2:]), fill, dtype=resized.dtype,
+                        device=resized.device)
+    canvas[:nh, :nw] = resized
+    return canvas, scale
 
 
 def gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
@@ -57,8 +88,10 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
 
 
 def enhance_contrast(img: torch.Tensor, factor: float = 1.2) -> torch.Tensor:
-    """PIL ImageEnhance.Contrast semantics: blend with the mean-gray image."""
-    mean = to_grayscale(img).mean()
+    """PIL ImageEnhance.Contrast semantics: blend with the mean-gray image.
+    The mean accumulates in float64, so that every device rounds it to the
+    same float32 (a float32 sum's order is the device's)."""
+    mean = to_grayscale(img).double().mean().float()
     return torch.clamp(mean + (img - mean) * factor, 0.0, 1.0)
 
 
@@ -69,6 +102,16 @@ def enhance_sharpness(img: torch.Tensor, factor: float = 1.1) -> torch.Tensor:
     else:
         blurred = blur_planes(img.permute(2, 0, 1)).permute(1, 2, 0)
     return torch.clamp(blurred + (img - blurred) * factor, 0.0, 1.0)
+
+
+def median_denoise3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median filter of the gray image, edge-replicated borders (the
+    reference's MedianFilter(3)): the middle of the 9 shifted copies."""
+    g = to_grayscale(img)
+    h, w = g.shape
+    p = F.pad(g[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    shifts = torch.stack([p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)])
+    return torch.sort(shifts, dim=0).values[4]
 
 
 def adaptive_binarize(img: torch.Tensor, block_size: int = 11,
@@ -139,3 +182,35 @@ def estimate_skew_angle(
     required = 1.0 + 0.05 * best_angle.abs()
     confident = score.gather(1, best[:, None])[:, 0] > required * score0
     return torch.where(confident, -best_angle, torch.zeros_like(best_angle))
+
+
+def deskew(img: torch.Tensor, min_angle: float = 0.5, max_angle: float = 45.0,
+           fill_value: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deskew with the reference's gate: |angle| < 0.5 degrees is a no-op,
+    |angle| > 45 is rejected (likely a mis-detection); otherwise the page
+    turns by the estimated correcting angle. Returns (image, applied angle
+    as a float32 scalar tensor). The gate is read on the host (one sync),
+    so a straight page skips the rotation, as the JAX module's lax.cond."""
+    angle = estimate_skew_angle(to_grayscale(img)[None])[0]
+    apply = bool(((angle.abs() >= min_angle) & (angle.abs() <= max_angle)).item())
+    if not apply:
+        return img, torch.zeros((), dtype=torch.float32, device=img.device)
+    return rotate(img, angle, fill_value=fill_value), angle
+
+
+def preprocess_page(img: torch.Tensor, enable_deskew: bool = True,
+                    enable_contrast: bool = True,
+                    enable_binarize: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The on-device enhancement chain on one page (the reference's
+    preprocess_for_azure minus the codec steps): deskew, then contrast 1.2
+    and sharpness 1.1, then adaptive binarization, each where its flag is
+    on. Returns (enhanced [0, 1] image, skew angle)."""
+    angle = torch.zeros((), dtype=torch.float32, device=img.device)
+    if enable_deskew:
+        img, angle = deskew(img)
+    if enable_contrast:
+        img = enhance_contrast(img, 1.2)
+        img = enhance_sharpness(img, 1.1)
+    if enable_binarize:
+        img = adaptive_binarize(img)
+    return img, angle

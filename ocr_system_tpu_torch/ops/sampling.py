@@ -1,11 +1,14 @@
-"""Bilinear crops for the recognizer (port of the rec-path half of
+"""Bilinear sampling: affine warps and the recognizer's crops (port of
 ocr_system_tpu/ops/sampling.py).
 
-Conventions: images are (H, W) float tensors; coordinates are (x, y) with x
-along the width. ``crop_quads`` zero-fills outside the page;
+Conventions: images are (H, W) or (H, W, C) float tensors; coordinates are
+(x, y) with x along the width. Affine matrices are 2x3 and map OUTPUT pixel
+coordinates to INPUT pixel coordinates (the inverse warp a gather
+implements). ``affine_sample`` and ``crop_quads`` fill outside the source;
 ``crop_boxes_separable`` clamps (border replication). The axis-aligned crop
-that the recognizer runs is the CUDA kernel in kernels/crop.py; these two
-are the general quad path and the JAX package's separable reference.
+that the recognizer runs is the CUDA kernel in kernels/crop.py; the quad
+crop is the general path and ``crop_boxes_separable`` the JAX package's
+separable reference.
 """
 
 from __future__ import annotations
@@ -15,13 +18,15 @@ import torch
 
 
 def _gather_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Sample img (H, W) at float coords x, y (same shape); out-of-range
+    """Sample img (H, W[, C]) at float coords x, y (same shape); out-of-range
     reads clamp to the border pixel."""
-    h, w = img.shape
+    h, w = img.shape[0], img.shape[1]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    dx = x - x0
-    dy = y - y0
+    dx = (x - x0).to(img.dtype)
+    dy = (y - y0).to(img.dtype)
+    if img.dim() == 3:
+        dx, dy = dx[..., None], dy[..., None]
     x0i = x0.long().clamp(0, w - 1)
     x1i = (x0i + 1).clamp(0, w - 1)
     y0i = y0.long().clamp(0, h - 1)
@@ -33,6 +38,70 @@ def _gather_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> tor
     top = v00 * (1.0 - dx) + v01 * dx
     bot = v10 * (1.0 - dx) + v11 * dx
     return top * (1.0 - dy) + bot * dy
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c with one rounding: the product is exact in float64,
+    and so is the sum at these magnitudes."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def in_bounds_mask(h: int, w: int, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+
+
+def affine_sample(img: torch.Tensor, matrix: torch.Tensor, out_shape: tuple[int, int],
+                  fill_value: float = 0.0) -> torch.Tensor:
+    """Inverse-warp ``img`` (H, W[, C]) with the 2x3 ``matrix`` into an
+    (out_h, out_w) grid, ``fill_value`` where the source point lies outside
+    the image.
+
+    matrix rows: [a, b, tx], [c, d, ty] so that
+        x_in = a*x_out + b*y_out + tx ;  y_in = c*x_out + d*y_out + ty
+    """
+    out_h, out_w = out_shape
+    matrix = matrix.to(device=img.device, dtype=torch.float32)
+    ys, xs = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=img.device),
+                            torch.arange(out_w, dtype=torch.float32, device=img.device),
+                            indexing="ij")
+    # a x + b y in one fused multiply-add, as XLA's compiled warp contracts
+    # it; the same bits on every device
+    x_in = _fma(matrix[0, 0], xs, matrix[0, 1] * ys) + matrix[0, 2]
+    y_in = _fma(matrix[1, 0], xs, matrix[1, 1] * ys) + matrix[1, 2]
+    sampled = _gather_bilinear(img, x_in, y_in)
+    mask = in_bounds_mask(img.shape[0], img.shape[1], x_in, y_in)
+    if img.dim() == 3:
+        mask = mask[..., None]
+    return torch.where(mask, sampled, torch.tensor(fill_value, dtype=sampled.dtype,
+                                                   device=sampled.device))
+
+
+def rotation_matrix(angle_deg, center: tuple[float, float]) -> torch.Tensor:
+    """2x3 inverse-rotation matrix (float32) about ``center`` (cx, cy). A
+    positive angle turns the image content counter-clockwise
+    (cv2.getRotationMatrix2D's sense, as the reference's deskew). The
+    translation is cx - a cx - b cy (and cy - c cx - d cy) in two fused
+    multiply-adds, as XLA's compiled arithmetic contracts it (the JAX
+    deskew's rotation runs compiled, inside its lax.cond). It is computed
+    on the host, so that every device warps by the same matrix."""
+    theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32).cpu())
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    cx, cy = (torch.tensor(v, dtype=torch.float32) for v in center)
+    # the inverse of a counter-clockwise rotation turns the output
+    # coordinates clockwise about the centre
+    a, b = cos, -sin
+    c, d = sin, cos
+    tx = _fma(-b, cy, _fma(-a, cx, cx))
+    ty = _fma(-d, cy, _fma(-c, cx, cy))
+    return torch.stack([torch.stack([a, b, tx]), torch.stack([c, d, ty])])
+
+
+def rotate(img: torch.Tensor, angle_deg, fill_value: float = 0.0) -> torch.Tensor:
+    """Rotate about the image centre ((w - 1) / 2, (h - 1) / 2), same
+    output shape."""
+    h, w = img.shape[0], img.shape[1]
+    m = rotation_matrix(angle_deg, ((w - 1) / 2.0, (h - 1) / 2.0))
+    return affine_sample(img, m, (h, w), fill_value=fill_value)
 
 
 def quad_rectify_matrix(quads: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:

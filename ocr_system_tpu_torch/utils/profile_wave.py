@@ -7,11 +7,11 @@ routing included; trained weights, bf16) on the two 8-page waves that
 chip_smoke.py drives: the committed Latin forms, and the mixed wave of the
 Hindi forms and Latin forms. Each wave runs once to warm up and once under
 both ``cProfile`` (host: cumulative time per function) and
-``torch.profiler`` (device: time per CUDA kernel). Prints one JSON line
-per wave with the wall time, the device's busy time and idle share over
-the wave, the stage ms, and the top host functions and device kernels;
-writes the full tables to DIR (default ``build/profile_wave``). Needs a
-CUDA device.
+``utils/profiler.device_trace`` (device: time per CUDA kernel). Prints one
+JSON line per wave with the wall time, the device's busy time and idle
+share over the wave, the stage ms, and the top host functions and device
+kernels; writes the full tables and each wave's Chrome trace to DIR
+(default ``build/profile_wave``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -94,15 +94,16 @@ def device_busy_ms(prof) -> float | None:
     return (busy + cur_e - cur_s) / 1e3
 
 
-def profile(engine, pages) -> tuple[dict, str]:
-    """One warm-up wave, then one wave under both profilers: the JSON row
-    and the full tables."""
+def profile(engine, pages, trace_dir: str) -> tuple[dict, str]:
+    """One warm-up wave, then one wave under both profilers (the device
+    trace written into ``trace_dir``): the JSON row and the full tables."""
+    from ocr_system_tpu_torch.utils.profiler import device_trace
+
     engine.process_pages(pages)  # warm-up: cuDNN/cuBLAS set-up, kernel build
     torch.cuda.synchronize()
 
     host = cProfile.Profile()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as dev_prof:
+    with device_trace(trace_dir, engine.recognizer.device) as dev_prof:
         t = time.perf_counter()
         host.enable()
         engine.process_pages(pages)
@@ -148,7 +149,8 @@ def main() -> int:
              "mixed": [*hindi_forms(), *forms[:expected["mixed_latin"]]]}
     os.makedirs(args.out, exist_ok=True)
     for name, arrays in waves.items():
-        row, tables = profile(engine, [PageImage(p, i + 1) for i, p in enumerate(arrays)])
+        row, tables = profile(engine, [PageImage(p, i + 1) for i, p in enumerate(arrays)],
+                              args.out)
         with open(os.path.join(args.out, f"profile_wave_{name}.txt"), "w") as f:
             f.write(tables)
         print(json.dumps({"wave": name, **row}), flush=True)

@@ -63,6 +63,11 @@ SERVICE_EXPECTED = PACKAGE / "assets" / "service_expected.json"
 # image 1:1 (at 300 dpi a 960 px image spans 230.4 pt, and the paste's
 # int() corners give 959 px and a resize)
 SERVICE_DPI = 72
+# the text PDF of the PDF parity tests, rendered at TEXT_PDF_DPI by the
+# JAX package on a host with the system's DejaVu and PIL with raqm (the
+# gray plane; export_torch_weights.py --only text_pdf writes it)
+TEXT_PDF_RENDER = PACKAGE / "assets" / "text_pdf_render.npz"
+TEXT_PDF_DPI = 150
 
 # A bf16 kernel output equals its plain version's float32 result rounded to
 # bf16, except by at most one bf16 ulp on at most this share of elements:
@@ -485,6 +490,44 @@ def scanned_pdf(pages: list[np.ndarray]) -> bytes:
     out += b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (
         len(objs) + 1, xref)
     return bytes(out)
+
+
+def text_pdf() -> bytes:
+    """A one-page text PDF (Helvetica, drawn in DejaVu Sans by the
+    renderer): two text lines, a TJ array with a kerning gap, a stroked rule
+    and a gray filled rectangle; tests/test_torch_pdf.py's ``text_pdf()``."""
+    content = (
+        b"BT /F1 24 Tf 72 700 Td (INVOICE 2024-001) Tj ET\n"
+        b"BT /F1 14 Tf 72 650 Td (Total Amount: $1,234.56) Tj ET\n"
+        b"BT /F1 14 Tf 72 620 Td [(Customer:) -500 (Jane Doe)] TJ ET\n"
+        b"1 w 70 600 m 400 600 l S\n"
+        b"0.8 g 70 520 200 40 re f\n"
+    )
+    objs = [
+        b"<< /Type /Catalog /Pages 2 0 R >>",
+        b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 612 792] /Rotate 0 "
+        b"/Resources << /Font << /F1 4 0 R >> >> /Contents 5 0 R >>",
+        b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+        b"<< /Length %d >>\nstream\n%s\nendstream" % (len(content), content),
+    ]
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for i, body in enumerate(objs, start=1):
+        offsets.append(len(out))
+        out += b"%d 0 obj\n" % i + body + b"\nendobj\n"
+    xref_at = len(out)
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % (len(objs) + 1)
+    out += b"".join(b"%010d 00000 n \n" % off for off in offsets)
+    out += (b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF"
+            % (len(objs) + 1, xref_at))
+    return bytes(out)
+
+
+def text_pdf_render() -> np.ndarray:
+    """The committed gray render of ``text_pdf()`` (module note)."""
+    with np.load(TEXT_PDF_RENDER) as z:
+        return z["gray"]
 
 
 def service_upload() -> tuple[bytes, dict]:

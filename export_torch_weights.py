@@ -2,7 +2,7 @@
 """Carry the trained weights and a set of real forms over to the PyTorch
 port, for the card (which reads neither orbax nor PIL, and has no JAX).
 
-    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train|eval|text_pdf]
+    JAX_PLATFORMS=cpu python export_torch_weights.py [--only service|train|eval|text_pdf|skew]
 
 Writes, in ocr_system_tpu_torch/:
 
@@ -26,7 +26,12 @@ Writes, in ocr_system_tpu_torch/:
   Latin forms 1 to MIXED_LATIN: per page its word, line, table,
   selection-mark and handwriting boxes, each word's recognizer, the crops
   each rescue re-decoded and replaced, and its markdown
-  (utils/smoke.page_record);
+  (utils/smoke.page_record); and under "skew", the served detector's
+  skew angles on every committed form and on the turned copies of
+  utils/smoke.SKEW_TURNS (utils/smoke.skew_pages; each page's digest, its
+  forward's float32 estimate, the angle its DetResult applied, and the
+  search's top two candidates with their scores). ``--only skew`` writes
+  just that entry (~1 min);
 - assets/glued_lines.npz, assets/glued_lines_expected.json: a page of
   printed lines whose value and the next column's label decode as one
   glued box, each line's quad and glued decode, and what the JAX
@@ -746,9 +751,70 @@ def export_text_pdf() -> list[Path]:
     return [smoke.TEXT_PDF_RENDER]
 
 
+def jax_skew_scores(f):
+    """The JAX module's skew search scores, (A,), of one float32 [0, 1] gray
+    page: ocr_system_tpu/ops/image_ops.estimate_skew_angle's body up to its
+    argmax, which does not return them."""
+    import jax.numpy as jnp
+
+    from ocr_system_tpu.ops.image_ops import resize_bilinear
+
+    n = 256
+    small = resize_bilinear(f, (n, n))
+    ink = (small < jnp.mean(small)).astype(jnp.float32)
+    tans = jnp.tan(jnp.deg2rad(jnp.linspace(-15.0, 15.0, 31)))
+    k = jnp.fft.fftfreq(n) * n
+    x = jnp.arange(n, dtype=jnp.float32) - (n - 1) / 2.0
+    phi = (-2.0 * jnp.pi / n) * (tans[:, None, None] * k[None, :, None] * x[None, None, :])
+    g = jnp.sum(jnp.fft.fft(ink, axis=0)[None] * (jnp.cos(phi) + 1j * jnp.sin(phi)), axis=-1)
+    return jnp.sum(jnp.abs(g) ** 2 * (jnp.abs(k) >= 8.0), axis=-1)
+
+
+def export_skew() -> list[Path]:
+    """The "skew" entry of assets/smoke_forms_expected.json (module doc),
+    the rest of the file as it is."""
+    import jax
+    import jax.numpy as jnp
+
+    from ocr_system_tpu.core.config import Settings as JaxSettings
+    from ocr_system_tpu.core.mesh import build_mesh, mesh_context
+    from ocr_system_tpu.engine import detector as jax_detector
+    from ocr_system_tpu.engine.pipeline import _build_engine
+    from ocr_system_tpu_torch.utils import smoke
+
+    names, pages = smoke.skew_pages()
+    engine = _build_engine("hybrid", JaxSettings(
+        **SMOKE_SETTINGS, det_checkpoint=str(REPO / "checkpoints/det"),
+        rec_checkpoint=str(REPO / "checkpoints/rec_latin"),
+        rec_checkpoint_devanagari=str(REPO / "checkpoints/rec_devanagari")))
+    neural = engine.detector.neural
+    with mesh_context(build_mesh("dp=1")):
+        dets = engine.detector.detect_batch(pages)
+    bucket = jax_detector._det_bucket(pages[0].shape, neural.settings.det_image_buckets)
+    canvases = np.stack([jax_detector._letterbox_host(p, bucket)[0] for p in pages])
+    out = neural._forward(bucket, len(pages))(jnp.asarray(neural._pack_wire(canvases)),
+                                               neural.variables)
+    estimates, gray = np.asarray(out[-2]), np.asarray(out[-1])
+    angles = np.asarray(jnp.linspace(-15.0, 15.0, 31))
+    score = jax.jit(jax.vmap(jax_skew_scores))
+    rows = []
+    for name, page, det, est, g in zip(names, pages, dets, estimates, gray):
+        sc = np.asarray(score(jnp.asarray(g[None], jnp.float32) / 255.0))[0]
+        top = np.argsort(-sc, kind="stable")[:2]
+        rows.append({"name": name, "digest": smoke.digest({"page": page}),
+                     "estimate": float(est), "applied": float(det.skew_angle),
+                     "top2": [[float(angles[i]), float(sc[i])] for i in top]})
+        print(f"skew {name}: estimate {float(est)!r}, applied {float(det.skew_angle)!r}")
+    path = ASSETS / "smoke_forms_expected.json"
+    expected = json.loads(path.read_text())
+    expected["skew"] = {"bucket": bucket, "pages": rows}
+    path.write_text(json.dumps(expected, indent=1) + "\n")
+    return [path]
+
+
 def main() -> int:
     only = {"service": export_service, "train": export_train, "eval": export_eval,
-            "text_pdf": export_text_pdf}
+            "text_pdf": export_text_pdf, "skew": export_skew}
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] and sys.argv[2] in only:
         for path in only[sys.argv[2]]():
             print(f"{path.relative_to(REPO)}: {path.stat().st_size / 1e6:.2f} MB")
@@ -799,6 +865,7 @@ def main() -> int:
                 raise SystemExit(f"the JAX engine failed a form: {[o.error for o in outs]}")
             expected[key][dt] = [page_record(o, r, c) for o, r, c in zip(outs, routed, rescued)]
     (ASSETS / "smoke_forms_expected.json").write_text(json.dumps(expected, indent=1) + "\n")
+    export_skew()
     glued = export_glued()
     extract = export_extract()
     service = export_service()

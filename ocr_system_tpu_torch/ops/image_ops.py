@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -140,21 +141,52 @@ def normalize_for_model(
     return (img - m) / s
 
 
-def estimate_skew_angle(
+def skew_candidates(max_angle: float = 15.0, num_angles: int = 31) -> np.ndarray:
+    """(2, num_angles) float32 host table: the skew search's candidate
+    angles (degrees) and their tangents, equal to what the JAX module's
+    ``jnp.linspace(-max_angle, max_angle, num_angles)`` and
+    ``jnp.tan(jnp.deg2rad(.))`` give compiled.
+
+    The angles follow JAX's ``_linspace`` as XLA compiles it with constant
+    ends: the division by ``div = num_angles - 1`` becomes a product with
+    the float32 reciprocal, and ``stop * (iota * r)`` is reassociated into
+    ``iota * (stop * r)``, so ``angle_i = start * (1 - i*r) + i * (stop*r)``
+    in float32, with ``stop`` appended. torch's and numpy's linspace round
+    differently (15 of the 31 default candidates: 4.000001 against 4).
+    The radians are the float32 product with pi/180, as ``jnp.deg2rad``;
+    their tangent is taken in float64 and rounded once, which equals XLA's
+    float32 ``tan`` at every default candidate (torch's float32 ``tan``
+    misses one by an ulp). Other grids can differ from XLA's compiled chain
+    by a few ulps in a tangent (45 degrees over 91 candidates: up to 36);
+    only the scores read the tangents. The table is built here and not by
+    device ops, whose elementwise rounding is the device's own."""
+    f32 = np.float32
+    start, stop = f32(-max_angle), f32(max_angle)
+    inv = f32(1) / f32(num_angles - 1)
+    i = np.arange(num_angles - 1, dtype=f32)
+    angles = np.append(start * (f32(1) - i * inv) + i * (stop * inv), stop).astype(f32)
+    rad = angles * f32(math.pi / 180.0)
+    tans = np.tan(rad.astype(np.float64)).astype(f32)
+    return np.stack([angles, tans])
+
+
+def skew_search(
     pages: torch.Tensor,
     num_angles: int = 31,
     max_angle: float = 15.0,
     downsample_to: int = 256,
-) -> torch.Tensor:
-    """(B, H, W) gray pages in [0, 1] -> (B,) correcting rotation in degrees
-    (0 when no candidate angle beats 0 decisively).
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) gray pages in [0, 1] -> the skew search's (A,) candidate
+    angles (degrees) and (B, A) scores, on the pages' device.
 
     The FFT shear-projection search of the JAX module: for small angles the
     rotated page's row profile is the profile after a per-column vertical
     shift x*tan(theta); by the shift theorem that is a per-frequency phase,
     and by Parseval the profile's variance is the summed power over the
     line-frequency band (|k| >= 8). The downsample is antialiased bilinear,
-    as ``jax.image.resize`` is.
+    as ``jax.image.resize`` is. The candidates and their tangents are
+    ``skew_candidates``' host table, so a page's angle is the JAX module's
+    float32 value bit for bit whenever both pick the same candidate.
     """
     n = downsample_to
     small = F.interpolate(
@@ -164,8 +196,7 @@ def estimate_skew_angle(
     ink = (small < small.mean(dim=(1, 2), keepdim=True)).float()
     f = torch.fft.fft(ink, dim=1)  # (B, k, x): FFT over rows
     dev = pages.device
-    angles = torch.linspace(-max_angle, max_angle, num_angles, device=dev)
-    tans = torch.tan(torch.deg2rad(angles))
+    angles, tans = torch.from_numpy(skew_candidates(max_angle, num_angles)).to(dev)
     k = torch.fft.fftfreq(n, device=dev) * n
     x = torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2.0
     phi = (-2.0 * math.pi / n) * (
@@ -175,7 +206,20 @@ def estimate_skew_angle(
     g_ak = torch.einsum("bkx,akx->bak", f, phase)
     power = g_ak.abs() ** 2
     kmask = (k.abs() >= 8.0).float()
-    score = (power * kmask).sum(dim=-1)  # (B, A)
+    return angles, (power * kmask).sum(dim=-1)
+
+
+def estimate_skew_angle(
+    pages: torch.Tensor,
+    num_angles: int = 31,
+    max_angle: float = 15.0,
+    downsample_to: int = 256,
+) -> torch.Tensor:
+    """(B, H, W) gray pages in [0, 1] -> (B,) correcting rotation in degrees
+    (0 when no candidate angle beats 0 decisively): ``skew_search``'s best
+    candidate, negated, where it beats the 0-degree score by the JAX
+    module's angle-scaled margin."""
+    angles, score = skew_search(pages, num_angles, max_angle, downsample_to)
     best = score.argmax(dim=1)
     score0 = score[:, num_angles // 2]
     best_angle = angles[best]

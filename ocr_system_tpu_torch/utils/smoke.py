@@ -124,6 +124,30 @@ def hindi_forms() -> np.ndarray:
         return z["pages"]
 
 
+# the skew gate's turned pages: (wave, form index, degrees counter-clockwise).
+# The corrections -5, -9 and -2 land on candidates where torch's linspace
+# and XLA's differ (as do the 2 degrees that Latin form 1 and Hindi forms 2
+# and 3 carry), 4 and 6 on whole ones; 13 more than Hindi form 3's own 2
+# fails the search's margin
+SKEW_TURNS = (("latin", 1, 5.0), ("latin", 2, -4.0), ("latin", 5, 9.0),
+              ("hindi", 0, -6.0), ("hindi", 2, 13.0), ("latin", 6, 2.0))
+
+
+def skew_pages() -> tuple[list[str], list[np.ndarray]]:
+    """The skew gate's pages and their names: every committed Latin and
+    Hindi form as it is, then the ``SKEW_TURNS`` copies
+    (``host_image.rotate_cubic``, white outside)."""
+    from ocr_system_tpu_torch.engine.host_image import rotate_cubic
+
+    waves = {"latin": smoke_forms()[0], "hindi": hindi_forms()}
+    names = [f"{w}/{i + 1}" for w, arr in waves.items() for i in range(len(arr))]
+    pages = [np.ascontiguousarray(p) for arr in waves.values() for p in arr]
+    for wave, i, deg in SKEW_TURNS:
+        names.append(f"{wave}/{i + 1} turned {deg:g}")
+        pages.append(rotate_cubic(waves[wave][i], deg))
+    return names, pages
+
+
 def glued_lines() -> tuple[np.ndarray, np.ndarray, list[str], dict]:
     """The committed glued-lines page, (H, W, 3) uint8, its lines' (N, 4, 2)
     quads and glued decodes, and the JAX package's glue split of them per

@@ -7,12 +7,13 @@ exactly; ``rotation_matrix``, ``in_bounds_mask``, ``affine_sample`` and
 deskew runs them: XLA contracts the matrix's translation into fused
 multiply-adds, which the port's ``rotation_matrix`` does too); ``deskew`` on seeded skewed pages (a straight page
 under the 0.5-degree gate and the stair layout of tests/test_ops.py
-included): the same candidate angle (torch's and jnp's linspace differ in
-the last bits at some), a rotation matrix equal to the JAX one within the
-float32 rounding of the angle, sine and cosine, the image within 1e-5 of
-the JAX package's warp by the port's matrix, and within 1e-5 of the JAX
-deskew itself where the two matrices are bit for bit equal; ``preprocess_page`` in
-all 8 flag combinations within 1e-5, held the same way."""
+included): the same candidate angle bit for bit, a rotation matrix equal
+to the JAX one within the float32 rounding of the sine and cosine, the
+image within 1e-5 of the JAX package's warp by the port's matrix, and
+against the JAX deskew itself within 1e-5 plus the displacement that the
+two matrices' difference allows (none where they are bit for bit equal);
+``preprocess_page`` in all 8 flag combinations within 1e-5, held the same
+way."""
 
 import itertools
 
@@ -182,24 +183,36 @@ def _jax_chain(page, matrix, contrast: bool, binarize: bool) -> np.ndarray:
 
 
 def _same_candidate(got_angle, want_angle, name) -> None:
-    """The same candidate of the skew search: torch's and the compiled
-    jnp.linspace differ in the last bits at 15 of the 31 candidate angles
-    (5 against 4.999999), which the port's estimate keeps (the served
-    detector's grid)."""
-    assert float(got_angle) == pytest.approx(float(want_angle), rel=1e-6, abs=0.0)
+    """The same candidate of the skew search, bit for bit: the port's
+    candidates are the compiled ``jnp.linspace``'s float32 values
+    (``image_ops.skew_candidates``; torch's linspace differs at 15 of the
+    31, 5 against 4.999999)."""
+    assert np.float32(got_angle).tobytes() == np.float32(want_angle).tobytes()
     if name in ("straight", "stair"):
         assert float(got_angle) == 0.0  # the no-op under the 0.5-degree gate
     else:
         assert float(got_angle) != 0.0
 
 
+def _displacement(m_got: np.ndarray, m_want: np.ndarray, shape) -> float:
+    """The largest distance, in pixels, between where the two 2x3 matrices
+    send an output pixel of ``shape`` (the corners bound it): a bilinear
+    warp of [0, 1] values moves by at most that much."""
+    h, w = shape[:2]
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]],
+                       np.float64)
+    d = corners @ (m_got.astype(np.float64) - m_want.astype(np.float64)).T
+    return float(np.abs(d).sum(axis=1).max())
+
+
 @pytest.mark.parametrize("name", sorted(DESKEW_PAGES))
 def test_deskew_matches_jax(name):
     """The warp equals the JAX package's compiled warp by the port's matrix
     within 1e-5; that matrix is the JAX one within float32 rounding of the
-    angle, sine and cosine (XLA's and libm's last bits differ at some
-    angles: cos 4 degrees), and where it is the JAX matrix bit for bit the
-    port's deskew is within 1e-5 of the JAX deskew itself."""
+    sine and cosine (XLA's and libm's last bits differ at some angles: cos
+    4 degrees), and the port's deskew is within 1e-5 of the JAX deskew
+    itself, plus the displacement between the two matrices: none but on
+    turned_-4 (ROADMAP Queue 3)."""
     page = DESKEW_PAGES[name]
     got, got_angle = image_ops.deskew(torch.from_numpy(page))
     want, want_angle = jax_image_ops.deskew(jnp.asarray(page))
@@ -210,8 +223,9 @@ def test_deskew_matches_jax(name):
     m_got, m_want = _matrices(page, got_angle, want_angle)
     assert np.abs(m_got[:, :2] - m_want[:, :2]).max() <= 2.5e-7
     assert _max_diff(got, _jax_chain(page, m_got, False, False)) <= WARP_TOL
-    if np.array_equal(m_got, m_want):
-        assert _max_diff(got, want) <= WARP_TOL
+    slack = _displacement(m_got, m_want, page.shape)
+    assert (slack == 0.0) == (name != "turned_-4")
+    assert _max_diff(got, want) <= WARP_TOL + slack
 
 
 @pytest.mark.parametrize("flags", list(itertools.product((False, True), repeat=3)))

@@ -66,6 +66,7 @@ from ocr_system_tpu_torch.ops.boxes import (
 from ocr_system_tpu_torch.ops.device_boxes import component_stats
 from ocr_system_tpu_torch.ops.sampling import quads_are_axis_aligned
 from ocr_system_tpu_torch.parallel.sharding import replicas
+from ocr_system_tpu_torch.utils.profiler import span
 
 PROB_STRIDE = 2  # prob map downsample before the host transfer
 SCORE_STRIDE = 4  # the pooled score map's stride (det_prob_wire_bits=1)
@@ -197,23 +198,32 @@ class Detector:
         return out
 
     def detect_batch(self, pages: list[np.ndarray]) -> list[DetResult]:
-        """pages: list of (H, W, 3) uint8 arrays (original sizes)."""
+        """pages: list of (H, W, 3) uint8 arrays (original sizes).
+
+        Spans (``utils/profiler``): ``det.letterbox`` (the host letterbox,
+        stack and wire pack), ``det.forward`` (the device forward's dispatch
+        and the host reads of its outputs), ``det.turn`` (the host deskew of
+        turned pages), ``det.emit`` (boxes, ink walk, page components), and
+        ``device_sync`` around each read that waits for the card."""
         s = self.settings
-        mode = s.det_prob_wire_bits
         pages = list(pages)
         by_bucket: dict[int, list[int]] = {}
         canvases: dict[int, np.ndarray] = {}
         scales: dict[int, float] = {}
-        for i, page in enumerate(pages):
-            bucket = _det_bucket(page.shape, s.det_image_buckets)
-            canvases[i], scales[i] = _letterbox_host(page, bucket)
-            by_bucket.setdefault(bucket, []).append(i)
+        with span("det.letterbox"):
+            for i, page in enumerate(pages):
+                bucket = _det_bucket(page.shape, s.det_image_buckets)
+                canvases[i], scales[i] = _letterbox_host(page, bucket)
+                by_bucket.setdefault(bucket, []).append(i)
 
         results: dict[int, DetResult] = {}
         for bucket, idxs in by_bucket.items():
-            batch = np.stack([canvases[i] for i in idxs])
-            out = self._forward(self._pack_wire(batch))
-            angles = out["angles"].cpu().numpy()
+            with span("det.letterbox"):
+                wire = self._pack_wire(np.stack([canvases[i] for i in idxs]))
+            with span("det.forward"):
+                out = self._forward(wire)
+                with span("device_sync"):
+                    angles = out["angles"].cpu().numpy()
             # host deskew + a single re-pass for pages that need it
             skewed = [
                 j for j in range(len(idxs))
@@ -221,60 +231,77 @@ class Detector:
             ]
             applied = np.zeros(len(idxs), np.float32)
             if skewed:
-                for j in skewed:
-                    i = idxs[j]
-                    pages[i] = _rotate_host(pages[i], float(angles[j]))
-                    canvases[i], scales[i] = _letterbox_host(pages[i], bucket)
-                    applied[j] = float(angles[j])
-                batch = np.stack([canvases[i] for i in idxs])
-                out = self._forward(self._pack_wire(batch))
-            if mode == 0:
-                stats_np = out["stats"].cpu().numpy()
-                n_comps_np = out["n_comps"].cpu().numpy()
-            else:
-                prob = out["prob"].cpu().numpy()
-                score = None
-                if mode == 1:
-                    # bits -> the binary geometry mask; the score map ->
-                    # stride-4 floats for the component mean-score gate
-                    score = unpack_levels4(out["score"].cpu().numpy())
-                    prob = np.unpackbits(prob, axis=2)
-                elif mode == 4:
-                    prob = unpack_levels4(prob)
-                else:
-                    prob = prob.astype(np.float32) / 255.0
-            for j, i in enumerate(idxs):
-                scale = scales[i]
-                h, w = pages[i].shape[:2]
-                kw = dict(
-                    box_thresh=s.det_box_thresh,
-                    unclip_ratio=s.det_unclip_ratio,
-                    scale_xy=(PROB_STRIDE / scale, PROB_STRIDE / scale),
-                    clip_wh=(w, h),
-                    max_boxes=s.max_boxes_per_page,
-                )
-                prob_map = None
-                if mode == 0:
-                    boxes = boxes_from_stats(stats_np[j], int(n_comps_np[j]), **kw)
-                    if boxes is None:
-                        # component overflow past K: exact host path over
-                        # this page's 16-level map
-                        page_prob = unpack_levels4(out["prob"][j:j + 1].cpu().numpy())[0]
-                        boxes = boxes_from_prob_map(
-                            page_prob, bin_thresh=s.det_bin_thresh, **kw
-                        )
-                elif mode == 1:
-                    prob_map = prob[j]
-                    boxes = boxes_from_prob_map(
-                        binary=prob_map.astype(np.uint8), score_map=score[j],
-                        score_stride=SCORE_STRIDE, bin_thresh=s.det_bin_thresh, **kw,
-                    )
-                else:
-                    prob_map = prob[j]
-                    boxes = boxes_from_prob_map(prob_map, bin_thresh=s.det_bin_thresh, **kw)
-                self._ink_and_emit(results, boxes, pages, i, j, scale, prob_map,
-                                   out["canvas"], float(applied[j]))
+                with span("det.turn"):
+                    for j in skewed:
+                        i = idxs[j]
+                        pages[i] = _rotate_host(pages[i], float(angles[j]))
+                        with span("det.letterbox"):
+                            canvases[i], scales[i] = _letterbox_host(pages[i], bucket)
+                        applied[j] = float(angles[j])
+                with span("det.letterbox"):
+                    wire = self._pack_wire(np.stack([canvases[i] for i in idxs]))
+                with span("det.forward"):
+                    out = self._forward(wire)
+            with span("det.forward"):
+                host = self._fetch(out)
+            with span("det.emit"):
+                for j, i in enumerate(idxs):
+                    boxes, prob_map = self._boxes(out, host, j, scales[i], pages[i].shape[:2])
+                    self._ink_and_emit(results, boxes, pages, i, j, scales[i], prob_map,
+                                       out["canvas"], float(applied[j]))
         return [results[i] for i in range(len(pages))]
+
+    def _fetch(self, out: dict) -> dict:
+        """The host copies of the forward's outputs that the boxes read:
+        under det_prob_wire_bits 0 the statistics and component counts;
+        otherwise the map as float32 in [0, 1] (1: the binary map, and the
+        stride-4 score map)."""
+        mode = self.settings.det_prob_wire_bits
+        with span("device_sync"):
+            if mode == 0:
+                return {"stats": out["stats"].cpu().numpy(),
+                        "n_comps": out["n_comps"].cpu().numpy()}
+            prob = out["prob"].cpu().numpy()
+            score = out["score"].cpu().numpy() if mode == 1 else None
+        if mode == 1:
+            # bits -> the binary geometry mask; the score map -> stride-4
+            # floats for the component mean-score gate
+            return {"prob": np.unpackbits(prob, axis=2), "score": unpack_levels4(score)}
+        if mode == 4:
+            return {"prob": unpack_levels4(prob)}
+        return {"prob": prob.astype(np.float32) / 255.0}
+
+    def _boxes(self, out: dict, host: dict, j: int, scale: float, page_hw: tuple[int, int]
+               ) -> tuple[list[DetectedBox], np.ndarray | None]:
+        """Row ``j``'s boxes in page coordinates, and the map they came from
+        (None under det_prob_wire_bits 0)."""
+        s = self.settings
+        h, w = page_hw
+        kw = dict(
+            box_thresh=s.det_box_thresh,
+            unclip_ratio=s.det_unclip_ratio,
+            scale_xy=(PROB_STRIDE / scale, PROB_STRIDE / scale),
+            clip_wh=(w, h),
+            max_boxes=s.max_boxes_per_page,
+        )
+        mode = s.det_prob_wire_bits
+        if mode == 0:
+            boxes = boxes_from_stats(host["stats"][j], int(host["n_comps"][j]), **kw)
+            if boxes is None:
+                # component overflow past K: exact host path over this
+                # page's 16-level map
+                with span("device_sync"):
+                    packed = out["prob"][j:j + 1].cpu().numpy()
+                boxes = boxes_from_prob_map(unpack_levels4(packed)[0],
+                                            bin_thresh=s.det_bin_thresh, **kw)
+            return boxes, None
+        prob_map = host["prob"][j]
+        if mode == 1:
+            return boxes_from_prob_map(
+                binary=prob_map.astype(np.uint8), score_map=host["score"][j],
+                score_stride=SCORE_STRIDE, bin_thresh=s.det_bin_thresh, **kw,
+            ), prob_map
+        return boxes_from_prob_map(prob_map, bin_thresh=s.det_bin_thresh, **kw), prob_map
 
     def _ink_and_emit(self, results, boxes, pages, i, j, scale, prob_map, canvas_dev,
                       applied_angle) -> None:

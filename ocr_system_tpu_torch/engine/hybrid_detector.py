@@ -12,8 +12,6 @@ low-contrast ink), so the union trades a little precision for recall.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -21,6 +19,7 @@ from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
 from ocr_system_tpu_torch.engine.detector import Detector, DetResult
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
+from ocr_system_tpu_torch.utils.profiler import timed
 
 IOU_DEDUP = 0.5  # containment above this: keep the neural box only
 # (same-word containment measures 0.8-1.0; different-word neighbors <0.3)
@@ -81,17 +80,14 @@ class HybridDetector:
         self.stage_ms: dict[str, float] = {}
 
     def detect_batch(self, pages: list[np.ndarray]) -> list[DetResult]:
-        t = time.perf_counter()
-        neural = self.neural.detect_batch(pages)
-        t_classical = time.perf_counter()
+        with timed("det_neural") as t_neural:
+            neural = self.neural.detect_batch(pages)
         # classical runs on the DESKEWED page the neural pass produced, so
         # both box sets live in one frame (unless the classical pass finds
         # a skew there too and rotates again, as the reference does)
-        classical = self.classical.detect_batch([d.page for d in neural])
-        self.stage_ms = {
-            "det_neural": (t_classical - t) * 1000.0,
-            "det_classical": (time.perf_counter() - t_classical) * 1000.0,
-        }
+        with timed("det_classical") as t_classical:
+            classical = self.classical.detect_batch([d.page for d in neural])
+        self.stage_ms = {"det_neural": t_neural.ms, "det_classical": t_classical.ms}
         out: list[DetResult] = []
         for nd, cd in zip(neural, classical):
             boxes = merge_boxes(

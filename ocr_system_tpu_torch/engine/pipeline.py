@@ -43,6 +43,7 @@ from ocr_system_tpu_torch.extract.postfix import _cer, clean_key
 from ocr_system_tpu_torch.extract.tables import find_tables
 from ocr_system_tpu_torch.models.charsets import get_charset
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
+from ocr_system_tpu_torch.utils.profiler import count, span, timed
 
 _EMPTY_QUADS = np.zeros((0, 4, 2), np.float32)
 
@@ -204,56 +205,63 @@ class TorchOCREngine:
     # split stages so the scheduler can pipeline waves: det of wave N+1
     # runs in a worker thread while rec of wave N runs
     def det_stage(self, pages: list[PageImage]):
-        t = time.perf_counter()
-        dets = self.detector.detect_batch([p.pixels for p in pages])
-        t_route = time.perf_counter()
-        # routing and re-segmentation run here, so that under the scheduler
-        # the det worker pays for them while rec of the last wave runs
-        for d, r in zip(dets, self._route_and_normalize(dets)):
-            d.routing = r
-        self.stage_ms["det"] = (t_route - t) * 1000.0
-        self.stage_ms["route"] = (time.perf_counter() - t_route) * 1000.0
+        with span("det_stage"):
+            count("pages", len(pages))
+            with timed("det") as det:
+                dets = self.detector.detect_batch([p.pixels for p in pages])
+            # routing and re-segmentation run here, so that under the
+            # scheduler the det worker pays for them while rec of the last
+            # wave runs
+            with timed("route") as route:
+                for d, r in zip(dets, self._route_and_normalize(dets)):
+                    d.routing = r
+        self.stage_ms["det"] = det.ms
+        self.stage_ms["route"] = route.ms
         self.stage_ms.update(getattr(self.detector, "stage_ms", {}))
         return dets
 
     def rec_stage(self, pages: list[PageImage], dets, t0: float | None = None) -> list[OCROutput]:
         t0 = time.perf_counter() if t0 is None else t0
-        t = time.perf_counter()
-        if any(d.routing is None for d in dets):
-            for d, r in zip(dets, self._route_and_normalize(dets)):
-                d.routing = r
-        recognizers = [d.routing for d in dets]
-        quads_list = [
-            np.array([b.quad for b in d.boxes], np.float32).reshape(-1, 4, 2)
-            for d in dets
-        ]
-        if self.settings.rec_tighten_y:
-            quads_list = [
-                script_mod.tighten_y(d.gray if d.gray is not None else d.page, q)
-                for d, q in zip(dets, quads_list)
-            ]
-        recs_list, self.rescued = self._recognize(dets, quads_list, recognizers)
-        t_glue = time.perf_counter()
-        self.stage_ms["rec"] = (t_glue - t) * 1000.0 - self.stage_ms["rescue"]
-        if self.settings.det_glue_split:
-            self._split_glued(dets, recs_list, recognizers)
-        self.routed = [box_recognizers(d) for d in dets]
-        t_fin = time.perf_counter()
-        self.stage_ms["glue"] = (t_fin - t_glue) * 1000.0
-        if len(pages) <= 1:
-            out = [
-                self._finish_page(p, d, r, t0)
-                for p, d, r in zip(pages, dets, recs_list)
-            ]
-        else:
-            # page finishing is host work; finish pages in parallel as the
-            # reference does
-            with ThreadPoolExecutor(max_workers=min(8, len(pages))) as ex:
-                out = list(ex.map(
-                    lambda pdr: self._finish_page(*pdr, t0),
-                    zip(pages, dets, recs_list),
-                ))
-        self.stage_ms["finish"] = (time.perf_counter() - t_fin) * 1000.0
+        with span("rec_stage"):
+            count("pages", len(pages))
+            with timed("rec") as rec:
+                if any(d.routing is None for d in dets):
+                    for d, r in zip(dets, self._route_and_normalize(dets)):
+                        d.routing = r
+                recognizers = [d.routing for d in dets]
+                quads_list = [
+                    np.array([b.quad for b in d.boxes], np.float32).reshape(-1, 4, 2)
+                    for d in dets
+                ]
+                if self.settings.rec_tighten_y:
+                    quads_list = [
+                        script_mod.tighten_y(d.gray if d.gray is not None else d.page, q)
+                        for d, q in zip(dets, quads_list)
+                    ]
+                recs_list, self.rescued = self._recognize(dets, quads_list, recognizers)
+            # the rescue's span is the rec span's one child: "rec" is its
+            # self time
+            self.stage_ms["rec"] = rec.ms - self.stage_ms["rescue"]
+            with timed("glue") as glue:
+                if self.settings.det_glue_split:
+                    self._split_glued(dets, recs_list, recognizers)
+                self.routed = [box_recognizers(d) for d in dets]
+            self.stage_ms["glue"] = glue.ms
+            with timed("finish") as finish:
+                if len(pages) <= 1:
+                    out = [
+                        self._finish_page(p, d, r, t0)
+                        for p, d, r in zip(pages, dets, recs_list)
+                    ]
+                else:
+                    # page finishing is host work; finish pages in parallel
+                    # as the reference does
+                    with ThreadPoolExecutor(max_workers=min(8, len(pages))) as ex:
+                        out = list(ex.map(
+                            lambda pdr: self._finish_page(*pdr, t0),
+                            zip(pages, dets, recs_list),
+                        ))
+            self.stage_ms["finish"] = finish.ms
         return out
 
     def _recognize(self, dets, quads_list, recognizers):
@@ -289,11 +297,15 @@ class TorchOCREngine:
 
     def _timed_rescue(self, rescue, key: str, rescued: list[dict], *args) -> None:
         """Run one rescue pass (a wave runs at most one of the two),
-        recording its counts per page and its wall ms."""
-        t = time.perf_counter()
-        for row, counts in zip(rescued, rescue(*args)):
-            row[key] = counts
-        self.stage_ms["rescue"] = (time.perf_counter() - t) * 1000.0
+        recording its counts per page, their sums as counters, and its wall
+        ms."""
+        with timed("rescue") as sp:
+            counts = rescue(*args)
+            for row, c in zip(rescued, counts):
+                row[key] = c
+            count("rescue.redecoded", sum(c[0] for c in counts))
+            count("rescue.replaced", sum(c[1] for c in counts))
+        self.stage_ms["rescue"] = sp.ms
 
     def _confidence_rescue(self, dets, quads_list, assign, recs, out) -> list[list[int]]:
         """Re-decode low-confidence crops on script-MIXED pages with the

@@ -37,6 +37,7 @@ from ocr_system_tpu_torch.ops.sampling import (
     quads_to_aabbs,
 )
 from ocr_system_tpu_torch.parallel.sharding import replicas
+from ocr_system_tpu_torch.utils.profiler import count
 
 
 @dataclass
@@ -226,6 +227,10 @@ class Recognizer:
                     q[k, j] = _extend_quad(quad, bucket / wv)
                     w_valid[k, j] = wv
             rows = [k for k, group in enumerate(groups) if group]
+            # counters: the real crops, and the crop slots SVTR runs
+            # (padding crops and padding rows included)
+            count("rec.crops", sum(len(g) for g in groups))
+            count("rec.slots", q.shape[0] * q.shape[1])
             ids, conf = self._run(stack_dev, q, w_valid, bucket, axis_aligned, rows)
             pending.append((n_per_page, ids, conf))
 

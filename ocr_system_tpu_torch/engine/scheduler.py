@@ -25,7 +25,7 @@ from dataclasses import dataclass
 from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.core.mesh import current_mesh, mesh_context
 from ocr_system_tpu_torch.engine.preprocess import PageImage
-from ocr_system_tpu_torch.utils.profiler import StageTimer
+from ocr_system_tpu_torch.utils.profiler import SPANS, StageTimer, span, span_ids
 
 logger = logging.getLogger(__name__)
 
@@ -56,7 +56,15 @@ class PageScheduler:
         for wave N+1 while the main thread runs recognition for wave N — the
         two stages share one device queue, so transfers and host postprocess
         overlap device compute instead of serializing with it.
+
+        Every span of the call carries its call id and its wave's index,
+        in the det worker too (``utils/profiler.span_ids``).
         """
+        call = SPANS.new_call()
+        with span_ids(call, -1), span("process"):
+            return self._process(pages, call)
+
+    def _process(self, pages: list[PageImage], call: int) -> list:
         from ocr_system_tpu_torch.engine.pipeline import OCROutput
 
         wave_size = max(self.settings.det_batch_size, 1)
@@ -106,67 +114,63 @@ class PageScheduler:
             workers = max(self.settings.det_workers, 1)
             mesh = current_mesh()
 
-            def det_stage(wave_pages):
-                if mesh is None:
-                    return self.engine.det_stage(wave_pages)
-                with mesh_context(mesh):
-                    return self.engine.det_stage(wave_pages)
+            def det_stage(wave_i):
+                wave_pages = [p for _, p in waves[wave_i]]
+                with span_ids(call, wave_i):
+                    if mesh is None:
+                        return self.engine.det_stage(wave_pages)
+                    with mesh_context(mesh):
+                        return self.engine.det_stage(wave_pages)
 
             with ThreadPoolExecutor(
                 workers, thread_name_prefix="det"
             ) as det_pool:
                 det_futs: list = [None] * len(waves)
                 for k in range(min(PREFETCH, len(waves))):
-                    det_futs[k] = det_pool.submit(
-                        det_stage, [p for _, p in waves[k]]
-                    )
+                    det_futs[k] = det_pool.submit(det_stage, k)
                 for w_i, wave in enumerate(waves):
                     self.stats.waves += 1
+                    with span_ids(call, w_i):
+                        try:
+                            fut, det_futs[w_i] = det_futs[w_i], None
+                            with self.timer.stage("det_wait"):
+                                dets = fut.result()
+                            nxt = w_i + PREFETCH
+                            if nxt < len(waves):
+                                det_futs[nxt] = det_pool.submit(det_stage, nxt)
+                            with self.timer.stage("rec"):
+                                results = self.engine.rec_stage(
+                                    [p for _, p in wave], dets
+                                )
+                            dets = None
+                            for (i, _), r in zip(wave, results):
+                                outputs[i] = r
+                        except Exception as e:
+                            nxt = w_i + PREFETCH
+                            if nxt < len(waves) and det_futs[nxt] is None:
+                                det_futs[nxt] = det_pool.submit(det_stage, nxt)
+                            handle_wave_failure(wave, e)
+        else:
+            for w_i, wave in enumerate(waves):
+                self.stats.waves += 1
+                with span_ids(call, w_i):
                     try:
-                        fut, det_futs[w_i] = det_futs[w_i], None
-                        with self.timer.stage("det_wait"):
-                            dets = fut.result()
-                        nxt = w_i + PREFETCH
-                        if nxt < len(waves):
-                            det_futs[nxt] = det_pool.submit(
-                                det_stage,
-                                [p for _, p in waves[nxt]],
-                            )
-                        with self.timer.stage("rec"):
-                            results = self.engine.rec_stage(
-                                [p for _, p in wave], dets
-                            )
-                        dets = None
+                        if pipelined:
+                            with self.timer.stage("det_wait"):
+                                dets = self.engine.det_stage(
+                                    [p for _, p in wave]
+                                )
+                            with self.timer.stage("rec"):
+                                results = self.engine.rec_stage(
+                                    [p for _, p in wave], dets
+                                )
+                        else:
+                            with self.timer.stage("det_rec"):
+                                results = self.engine.process_pages(
+                                    [p for _, p in wave]
+                                )
                         for (i, _), r in zip(wave, results):
                             outputs[i] = r
                     except Exception as e:
-                        nxt = w_i + PREFETCH
-                        if nxt < len(waves) and det_futs[nxt] is None:
-                            det_futs[nxt] = det_pool.submit(
-                                det_stage,
-                                [p for _, p in waves[nxt]],
-                            )
                         handle_wave_failure(wave, e)
-        else:
-            for wave in waves:
-                self.stats.waves += 1
-                try:
-                    if pipelined:
-                        with self.timer.stage("det_wait"):
-                            dets = self.engine.det_stage(
-                                [p for _, p in wave]
-                            )
-                        with self.timer.stage("rec"):
-                            results = self.engine.rec_stage(
-                                [p for _, p in wave], dets
-                            )
-                    else:
-                        with self.timer.stage("det_rec"):
-                            results = self.engine.process_pages(
-                                [p for _, p in wave]
-                            )
-                    for (i, _), r in zip(wave, results):
-                        outputs[i] = r
-                except Exception as e:
-                    handle_wave_failure(wave, e)
         return [outputs[i] for i in range(len(pages))]

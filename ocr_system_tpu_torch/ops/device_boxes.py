@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ocr_system_tpu_torch.utils.profiler import count, span
+
 # stats channel layout (keep ops/boxes.boxes_from_stats in sync):
 # 0 count, 1 score_sum, 2 x0, 3 y0, 4 x1, 5 y1, 6 theta, 7 cx, 8 cy,
 # 9 u0, 10 v0, 11 u1, 12 v1
@@ -63,18 +65,26 @@ def _one_round(labels: torch.Tensor, binary: torch.Tensor) -> torch.Tensor:
 
 def propagate_labels(binary: torch.Tensor, max_rounds: int = MAX_ROUNDS) -> torch.Tensor:
     """(B, H, W) bool -> int64 canonical labels (0 on background). The
-    convergence test reads one flag per round back to the host."""
+    convergence test reads one flag per round back to the host (a
+    ``device_sync`` span each). Counters: ``det.label_calls``,
+    ``det.label_rounds``, and ``det.label_unconverged`` where the loop
+    stops at ``max_rounds`` with labels still changing."""
     b, h, w = binary.shape
     if h * w >= 2**24:
         raise ValueError("map too large: labels must stay exact in float32")
     idx = torch.arange(1, h * w + 1, device=binary.device).view(1, h, w)
     labels = torch.where(binary, idx, 0)
-    for _ in range(max_rounds):
+    rounds, changed = 0, True
+    while changed and rounds < max_rounds:
         new = _one_round(labels, binary)
-        changed = bool((new != labels).any())
+        with span("device_sync"):
+            changed = bool((new != labels).any())
         labels = new
-        if not changed:
-            break
+        rounds += 1
+    count("det.label_calls")
+    count("det.label_rounds", rounds)
+    if changed:
+        count("det.label_unconverged")
     return labels
 
 

@@ -5,19 +5,39 @@ in the JAX package, and the device side: a ``torch.profiler`` trace around
 any stage (``device_trace``, the counterpart of the JAX package's
 ``jax.profiler`` trace), and one wave's det and rec device time with its
 FLOP count and MFU (``det_rec_breakdown``).
+
+The program's own spans and counters (``SPANS``): ``span(name)`` around a
+layer's work, ``count(name, n)`` onto the innermost span its thread has
+open, ``timed(name)`` for a span whose clock the caller also reads (the
+engine's ``stage_ms``, ``StageTimer``). Spans are recorded only while a
+``torch.profiler`` records in the process (its module flag, which every
+thread sees; ``torch.autograd._profiler_enabled()`` is per thread and
+reads False in the scheduler's det worker); otherwise a span site reads
+that flag and records nothing. They never go through ``record_function``
+or NVTX, whose ranges the profiler would mirror onto the device timeline
+as if they were device work. Each span carries the ``PageScheduler.process``
+call and wave its thread serves (``span_ids``), so the spans of one wave
+share them across the main thread and the det worker; times are
+``time.perf_counter_ns``, and ``SpanLog.on_unix_clock`` moves them onto
+``torch.profiler``'s clock (Unix-epoch ns) by one anchor taken when
+recording starts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
 import subprocess
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Iterator
 
 import torch
+import torch.autograd.profiler as _torch_profiler
 
 # repeats of each timed device pass: R back-to-back launches, one final
 # synchronise (the JAX package's _REPS)
@@ -53,6 +73,7 @@ def device_trace(log_dir: str | Path, device: str | torch.device | None = None
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
+    since = time.perf_counter_ns()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
         if dev.type == "cuda":
@@ -61,8 +82,193 @@ def device_trace(log_dir: str | Path, device: str | torch.device | None = None
             e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()):
         raise RuntimeError("device_trace: torch.profiler recorded no CUDA kernel; "
                            "no trace written")
-    prof.export_chrome_trace(
-        str(Path(log_dir) / f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+    path = Path(log_dir) / f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    _merge_spans(path, [s for s in SPANS.spans if s.start_ns >= since])
+
+
+def _merge_spans(path: Path, spans: list[Span]) -> None:
+    """Write the program's ``spans`` into the Chrome trace at ``path`` as
+    complete events of this process, one row per thread, on the file's own
+    time base (``baseTimeNanoseconds`` plus ``ts`` in microseconds)."""
+    if not spans:
+        return
+    trace = json.loads(path.read_text())
+    base = trace.get("baseTimeNanoseconds", 0)
+    events = trace.setdefault("traceEvents", [])
+    pid = os.getpid()
+    named = {e.get("tid") for e in events if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    for s, start, end in SPANS.on_unix_clock(spans):
+        if s.thread not in named:
+            named.add(s.thread)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": s.thread,
+                           "args": {"name": f"thread {s.thread}"}})
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+                       "tid": s.thread, "ts": (start - base) / 1e3, "dur": (end - start) / 1e3,
+                       "args": {"call": s.call, "wave": s.wave, "id": s.id, "parent": s.parent,
+                                **s.counts}})
+    path.write_text(json.dumps(trace))
+
+
+# spans a log keeps; those closed past it are counted in ``dropped``
+SPAN_CAP = 1 << 17
+
+
+class Span:
+    """One timed region: its name, the ``PageScheduler.process`` call and
+    wave its thread served, its id and its parent's (the innermost span its
+    thread had open; -1 for none), the thread's native id, start and end on
+    ``time.perf_counter_ns``, and its counts. Only a recorded span carries
+    the ids and counts; every span carries its clock."""
+
+    __slots__ = ("name", "call", "wave", "id", "parent", "thread", "start_ns", "end_ns",
+                 "counts", "_log")
+
+    def __init__(self, name: str, log: SpanLog | None):
+        self.name = name
+        self._log = log
+
+    def __enter__(self) -> Span:
+        if self._log is not None:
+            self._log._open(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.perf_counter_ns()
+        if self._log is not None:
+            self._log._close(self)
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+class _Off:
+    """The span of a site while nothing records: enters and exits only."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, a, b, c) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class _ThreadState(threading.local):
+    """Per thread: the recorded spans it has open, innermost last, its
+    native id, and the call and wave its spans carry."""
+
+    call = -1
+    wave = -1
+
+    def __init__(self):
+        self.stack: list[Span] = []
+        self.thread = threading.get_native_id()
+
+
+class SpanLog:
+    """The spans recorded in this process, at most ``cap`` of them, in the
+    order they closed."""
+
+    def __init__(self, cap: int = SPAN_CAP):
+        self.cap = cap
+        self.spans: list[Span] = []
+        self.dropped = 0
+        # (perf_counter_ns, time_ns) read together at the first recorded span
+        self.anchor: tuple[int, int] | None = None
+        self._ids = itertools.count()
+        self._calls = itertools.count()
+        self._local = _ThreadState()
+        self._lock = threading.Lock()
+
+    def span(self, name: str):
+        """A span of ``name`` around the ``with`` body while recording; a
+        shared no-op context otherwise."""
+        if not _torch_profiler._is_profiler_enabled:
+            return _OFF
+        return Span(name, self)
+
+    def timed(self, name: str) -> Span:
+        """A span whose clock runs whether or not it is recorded: its ``ms``
+        is the caller's stage time."""
+        return Span(name, self if _torch_profiler._is_profiler_enabled else None)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to ``name`` on the innermost recorded span this thread
+        has open (nothing where none is)."""
+        if not _torch_profiler._is_profiler_enabled:
+            return
+        stack = self._local.stack
+        if stack:
+            counts = stack[-1].counts
+            counts[name] = counts.get(name, 0) + n
+
+    def new_call(self) -> int:
+        return next(self._calls)
+
+    @contextlib.contextmanager
+    def ids(self, call: int, wave: int) -> Iterator[None]:
+        """The call and wave that this thread's spans carry in the body."""
+        local = self._local
+        old = local.call, local.wave
+        local.call, local.wave = call, wave
+        try:
+            yield
+        finally:
+            local.call, local.wave = old
+
+    def _open(self, s: Span) -> None:
+        local = self._local
+        stack = local.stack
+        if self.anchor is None:
+            self.anchor = (time.perf_counter_ns(), time.time_ns())
+        s.id = next(self._ids)
+        s.parent = stack[-1].id if stack else -1
+        s.call, s.wave, s.thread = local.call, local.wave, local.thread
+        s.counts = {}
+        stack.append(s)
+
+    def _close(self, s: Span) -> None:
+        self._local.stack.pop()
+        # list.append is atomic; a race past the cap keeps a span or two more
+        if len(self.spans) < self.cap:
+            self.spans.append(s)
+        else:
+            with self._lock:
+                self.dropped += 1
+
+    def clear(self) -> None:
+        """Forget every recorded span; the next one takes a new anchor."""
+        with self._lock:
+            self.spans, self.dropped, self.anchor = [], 0, None
+
+    def on_unix_clock(self, spans: list[Span] | None = None) -> list[tuple[Span, int, int]]:
+        """``spans`` (default: all) with their start and end in Unix-epoch ns,
+        the clock of ``torch.profiler``'s events."""
+        spans = self.spans if spans is None else spans
+        if not spans:
+            return []
+        perf, unix = self.anchor
+        return [(s, s.start_ns - perf + unix, s.end_ns - perf + unix) for s in spans]
+
+
+def self_ns(spans: list[Span]) -> dict[int, int]:
+    """Each span's self time by id: its duration less its children's (a
+    child runs inside its parent, in the parent's thread)."""
+    out = {s.id: s.end_ns - s.start_ns for s in spans}
+    for s in spans:
+        if s.parent in out:
+            out[s.parent] -= s.end_ns - s.start_ns
+    return out
+
+
+SPANS = SpanLog()
+span, timed, count, span_ids = SPANS.span, SPANS.timed, SPANS.count, SPANS.ids
 
 
 @dataclass
@@ -73,13 +279,13 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
+        """Times the body into ``stages[name]``, and logs it as a span."""
+        s = timed(name)
         try:
-            yield
+            with s:
+                yield
         finally:
-            self.stages[name] = self.stages.get(name, 0.0) + (
-                time.perf_counter() - t0
-            ) * 1000.0
+            self.stages[name] = self.stages.get(name, 0.0) + s.ms
 
     def as_ms(self) -> dict[str, int]:
         return {k: int(v) for k, v in self.stages.items()}

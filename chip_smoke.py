@@ -6,8 +6,10 @@
 Builds the CUDA kernels from the checkout and holds each form of each one
 (bf16 and float32 out) against its plain PyTorch version, bit for bit, at
 the shapes the serving path gives it (8 pages at the 960 bucket, every rec
-width), timing it cold (the L2 evicted before the launch; the kernels
-line reports this time for the serving bf16 form) and warm. Then it runs
+width; the rotate kernel on the 8 committed forms against
+``host_image.rotate_cubic`` on the host), timing it cold (the L2 evicted
+before the launch; the kernels line reports this time for the serving
+bf16 form) and warm. Then it runs
 the port with the trained weights (``weights/*.npz``) at full model width:
 160 word quads per page (every width bucket, axis-aligned and rotated)
 through ``Recognizer.recognize_pages``; 4 committed forms, one turned,
@@ -154,6 +156,7 @@ PKG = "ocr_system_tpu_torch"
 SEED = 1234
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12  # float64 outside the tensor cores
 
 
 def emit(record: dict) -> None:
@@ -168,18 +171,20 @@ def native_counters() -> dict:
 
 
 def reset_counts() -> None:
-    from ocr_system_tpu_torch.kernels import crop, enhance
+    from ocr_system_tpu_torch.kernels import crop, enhance, rotate
 
     enhance.LAUNCHES.reset()
     crop.LAUNCHES.reset()
+    rotate.LAUNCHES.reset()
     for c in native_counters().values():
         c.reset()
 
 
 def counts() -> dict[str, int]:
-    from ocr_system_tpu_torch.kernels import crop, enhance
+    from ocr_system_tpu_torch.kernels import crop, enhance, rotate
 
-    return {"enhance": enhance.LAUNCHES.value, "crop": crop.LAUNCHES.value}
+    return {"enhance": enhance.LAUNCHES.value, "crop": crop.LAUNCHES.value,
+            "rotate": rotate.LAUNCHES.value}
 
 
 def native_calls() -> dict[str, int]:
@@ -305,7 +310,8 @@ def phase_engine(engine, pages, rotated: int | None) -> dict:
         if turned != (k == rotated):
             raise AssertionError(f"page {k + 1}: deskew {'ran' if turned else 'did not run'}")
     if engine.recognizer.device.type == "cuda" and (
-            launched["enhance"] < 1 + (rotated is not None) or launched["crop"] <= 0):
+            launched["enhance"] < 1 + (rotated is not None) or launched["crop"] <= 0
+            or (launched["rotate"] > 0) != (rotated is not None)):
         raise AssertionError(f"kernels not on the path: {launched}")
     return {"phase": "engine", "pages": len(pages), "words": words,
             "launches": launched, "stage_ms": engine.stage_ms, "wall_s": sec,
@@ -1823,12 +1829,18 @@ EVAL_LAUNCHES = {
 }
 
 
+# the kernels whose launches a phase gates; rotate launches where a page
+# is found skewed, which the data decides
+GATED = ("enhance", "crop")
+
+
 def launch_misses(launched: dict, want: tuple[str, ...], on_card: bool) -> list[str]:
     """Kernels that launched where they must not, or did not where they
     must (on the card only: on the CPU the wrappers count nothing)."""
     if not on_card:
         return []
-    return [f"{k} launched {v} times" for k, v in launched.items() if (v > 0) != (k in want)]
+    return [f"{k} launched {v} times" for k, v in launched.items()
+            if k in GATED and (v > 0) != (k in want)]
 
 
 def phase_fonts(want: dict) -> dict:
@@ -2297,9 +2309,9 @@ def cold_ms(fn, flush, iters: int = 10) -> float:
     return total / iters
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float = H100_F32_FLOPS) -> dict:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes}
@@ -2442,6 +2454,61 @@ def kernel_crop(dev, flush) -> dict:
     return {"name": "crop", **serving, "forms": forms}
 
 
+# float64 operations a pixel of the rotate kernel for C channels: the
+# coordinates 8, the fractions 2, two weight sets 21 each, 16 weight
+# products, and a multiply and an add per channel and tap
+def rotate_flops_per_px(c: int) -> int:
+    return 8 + 2 + 2 * 21 + 16 + 16 * 2 * c
+
+
+def kernel_rotate(dev, flush, forms) -> dict:
+    """The rotate kernel at the served shape: the 8 committed forms (RGB,
+    960 x 960) in one launch, each at its own angle in the forms cell's
+    +-4 degrees, white outside, bit for bit rotate_cubic's (its plain
+    version, on the host), gray too. Times the kernel cold and warm (CUDA
+    events), the plain version (host clock, one pass over the 8 pages) and
+    the turn as the detector pays it (``turn_pages``: the pages up, the
+    launch, the pages back; host clock)."""
+    import torch
+
+    from ocr_system_tpu_torch.engine.detector import turn_pages
+    from ocr_system_tpu_torch.kernels import rotate
+
+    rng = np.random.default_rng(SEED + 5)
+    angles = [float(a) for a in rng.choice([-1, 1], 8) * rng.uniform(0.5, 4.0, 8)]
+    forms = np.ascontiguousarray(forms)
+    b, h, w, c = forms.shape
+    pages = torch.from_numpy(forms).to(dev)
+    t = time.perf_counter()
+    want = rotate.rotate_pages_plain(torch.from_numpy(forms), angles)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    reset_counts()
+    got = rotate.rotate_pages(pages, angles).cpu()
+    if rotate.LAUNCHES.value != 1 or not torch.equal(got, want):
+        raise AssertionError(f"rotate: launches {rotate.LAUNCHES.value}, "
+                             f"{int((got != want).sum())} bytes off rotate_cubic")
+    gray = np.ascontiguousarray(forms[..., :1])
+    gray_want = rotate.rotate_pages_plain(torch.from_numpy(gray), angles)
+    if not torch.equal(rotate.rotate_pages(torch.from_numpy(gray).to(dev), angles).cpu(),
+                       gray_want):
+        raise AssertionError("rotate: the gray form is not rotate_cubic's")
+    call = lambda: rotate.rotate_pages(pages, angles)  # noqa: E731
+    row = {"form": f"{b} x {h}x{w}x{c} u8, +-4 deg", "bit_exact": True,
+           "ms": cold_ms(call, flush), "warm_ms": cuda_ms(call), "plain_ms": plain_ms,
+           "plain_device": "host", "library_ms": None, "shape": [b, h, w, c],
+           "angles": angles}
+    listed = list(forms)
+    turn_pages(listed, angles, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        turn_pages(listed, angles, dev)
+    row["turn_ms"] = (time.perf_counter() - t) * 1e3 / 5
+    row.update(bound(2 * pages.numel(), b * h * w * rotate_flops_per_px(c), H100_F64_FLOPS))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return {"name": "rotate", **row}
+
+
 def main() -> int:
     try:
         import torch
@@ -2480,13 +2547,15 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     k_enh = kernel_enhance(dev, flush)
     k_crop = kernel_crop(dev, flush)
-    del flush
-    emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop,
-          "elapsed_s": time.perf_counter() - t})
 
     from ocr_system_tpu_torch.engine.host_image import rotate_cubic
     from ocr_system_tpu_torch.engine.preprocess import PageImage
     from ocr_system_tpu_torch.utils import smoke
+
+    k_rot = kernel_rotate(dev, flush, smoke.smoke_forms()[0])
+    del flush
+    emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop, "rotate": k_rot,
+          "elapsed_s": time.perf_counter() - t})
 
     # ---- phase 2: the trained weights and the committed forms ----
     forms, expected = smoke.smoke_forms()

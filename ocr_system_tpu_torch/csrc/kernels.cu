@@ -2,11 +2,12 @@
 //
 // Each kernel is exposed through a plain extern "C" launcher that takes raw
 // device pointers and a stream and returns cudaGetLastError() after the
-// launch; Python binds them with ctypes (kernels/_build.py). Both kernels
-// are bound by device-memory bytes, not arithmetic: see the notes above
+// launch; Python binds them with ctypes (kernels/_build.py). enhance and
+// crop are bound by device-memory bytes, not arithmetic: see the notes above
 // each one. Each writes float32 or bfloat16 (rounded to nearest even, as
 // Tensor.to(torch.bfloat16) rounds), the model's compute dtype, so no
-// separate cast pass follows.
+// separate cast pass follows. rotate, the deskew turn, works in float64 on
+// u8 pages and is bound by the host copies around it (its note).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -400,6 +401,111 @@ __global__ void __launch_bounds__(kCropThreads) crop_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// rotate: the detector's deskew turn, engine/host_image.py::rotate_cubic
+//
+// Replaces no Pallas kernel: the JAX package turns a skewed page on the
+// host with cv2.warpAffine (ocr_system_tpu/engine/detector.py::_rotate_host),
+// and the port's host version, rotate_cubic (float64 PyTorch ops on the
+// whole page), took about 480 ms a 960 x 960 RGB page. Each output pixel
+// samples the page at the inverse rotation of its centre-relative
+// coordinates with OpenCV's bicubic weights (a = -0.75); taps outside the
+// page read `fill`; the sum is rounded half to even and clamped to u8.
+//
+// Every step is the host version's float64 operation in its order: the
+// coordinates as alpha * (x - tx) - beta * (y - ty) and beta * (x - tx) +
+// alpha * (y - ty), the weights as _cubic_weights orders them, each tap's
+// weight wy[k1] * wx[k2], then acc += src * weight with k1 outer and k2
+// inner. nvcc contracts a * b + c into an FMA by default, which rounds
+// once where the host rounds twice, so each product and sum is written
+// with __dmul_rn / __dadd_rn / __dsub_rn. The output equals rotate_cubic
+// bit for bit.
+//
+// Bound: on the card, float64 operations: 164 a pixel for RGB (21 a weight
+// set per axis, 8 for the coordinates, 2 for the fractions, 16 weight
+// products, 2 per channel and tap), so 8 RGB pages of 960^2 are 1.21 GFLOP,
+// 36 us at the H100's 34 TFLOP/s float64 (not tensor-core) rate, against
+// 13 us for their 44 MB of u8 in and out at 3.35 TB/s. In the detector the
+// turn is bound by neither: the page goes up and the turned page comes back
+// over PCIe (2.76 MB each way a page, a millisecond or so for a batch),
+// because the re-letterbox, the boxes and the classical pass read it on the
+// host. Design: one thread per output pixel, all channels; a block is 32 x 8
+// pixels, so a warp's 32 neighbouring x read their 16 taps from a few
+// source rows, through the read-only cache. Each page's four parameters
+// travel by value in the launch's arguments (up to kRotMaxPages pages a
+// launch, 2 KB; __grid_constant__, so a block reads its page's from the
+// constant bank and no thread copies the struct), and the launch needs no
+// copy to the card before it.
+constexpr int kRotTileW = 32;
+constexpr int kRotTileH = 8;
+constexpr int kRotMaxPages = 64;
+
+// per page alpha, beta, tx, ty (host_image.rotation_params)
+struct RotateParams {
+  double v[kRotMaxPages][4];
+};
+
+// OpenCV's interpolateCubic (a = -0.75) at t, in _cubic_weights' order:
+// c0 = ((a (t + 1) - 5a) (t + 1) + 8a) (t + 1) - 4a,
+// c1 = ((a + 2) t - (a + 3)) t t + 1, c2 the same at 1 - t,
+// c3 = ((1 - c0) - c1) - c2; 5a, 8a, 4a, a + 2 and a + 3 are exact.
+__device__ __forceinline__ void cubic_weights(double t, double c[4]) {
+  constexpr double a = -0.75;
+  const double t1 = __dadd_rn(t, 1.0);
+  double p = __dsub_rn(__dmul_rn(a, t1), 5.0 * a);
+  p = __dadd_rn(__dmul_rn(p, t1), 8.0 * a);
+  c[0] = __dsub_rn(__dmul_rn(p, t1), 4.0 * a);
+  c[1] = __dadd_rn(__dmul_rn(__dmul_rn(__dsub_rn(__dmul_rn(a + 2.0, t), a + 3.0), t), t), 1.0);
+  const double u = __dsub_rn(1.0, t);
+  c[2] = __dadd_rn(__dmul_rn(__dmul_rn(__dsub_rn(__dmul_rn(a + 2.0, u), a + 3.0), u), u), 1.0);
+  c[3] = __dsub_rn(__dsub_rn(__dsub_rn(1.0, c[0]), c[1]), c[2]);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kRotTileW * kRotTileH) rotate_kernel(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+    const __grid_constant__ RotateParams params,
+    int h, int w, int fill) {
+  const int x = blockIdx.x * kRotTileW + threadIdx.x;
+  const int y = blockIdx.y * kRotTileH + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const double* pp = params.v[blockIdx.z];
+  const double alpha = pp[0], beta = pp[1], tx = pp[2], ty = pp[3];
+  const double dx = __dsub_rn((double)x, tx), dy = __dsub_rn((double)y, ty);
+  const double sx = __dsub_rn(__dmul_rn(alpha, dx), __dmul_rn(beta, dy));
+  const double sy = __dadd_rn(__dmul_rn(beta, dx), __dmul_rn(alpha, dy));
+  const double fx = floor(sx), fy = floor(sy);
+  double wx[4], wy[4];
+  cubic_weights(__dsub_rn(sx, fx), wx);
+  cubic_weights(__dsub_rn(sy, fy), wy);
+  const int ix = (int)fx, iy = (int)fy;
+  const size_t page = (size_t)h * w * C;
+  const uint8_t* src = in + blockIdx.z * page;
+  const double border = (double)fill;
+  double acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0;
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    const int yy = iy + k1 - 1;
+    const bool row_in = yy >= 0 && yy < h;
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      const int xx = ix + k2 - 1;
+      const bool inside = row_in && xx >= 0 && xx < w;
+      const double wk = __dmul_rn(wy[k1], wx[k2]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const double v = inside ? (double)__ldg(src + ((size_t)yy * w + xx) * C + c) : border;
+        acc[c] = __dadd_rn(acc[c], __dmul_rn(v, wk));
+      }
+    }
+  }
+  uint8_t* dst = out + blockIdx.z * page + ((size_t)y * w + x) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) dst[c] = (uint8_t)fmin(fmax(rint(acc[c]), 0.0), 255.0);
+}
+
 template <typename TIn, typename TOut, int NOUT>
 int launch_enhance(const EnhanceArgs& p, int planes, cudaStream_t stream) {
   const dim3 grid((p.w + kEnhTileW - 1) / kEnhTileW, (p.h + kEnhRows - 1) / kEnhRows, planes);
@@ -416,6 +522,18 @@ int launch_crop(const uint8_t* pages, const float* aabbs, const int32_t* w_valid
   const dim3 grid(n_boxes, (h_out + kCropRows - 1) / kCropRows);
   crop_kernel<TOut><<<grid, kCropThreads, smem, stream>>>(
       pages, aabbs, w_valid, static_cast<TOut*>(out), n_per_page, rows, cols, h_out, w_out);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_rotate(const uint8_t* in, uint8_t* out, const double* params, int pages, int h,
+                  int w, int fill, cudaStream_t stream) {
+  RotateParams p;
+  for (int i = 0; i < pages; ++i)
+    for (int k = 0; k < 4; ++k) p.v[i][k] = params[4 * i + k];
+  const dim3 block(kRotTileW, kRotTileH);
+  const dim3 grid((w + kRotTileW - 1) / kRotTileW, (h + kRotTileH - 1) / kRotTileH, pages);
+  rotate_kernel<C><<<grid, block, 0, stream>>>(in, out, p, h, w, fill);
   return (int)cudaGetLastError();
 }
 
@@ -462,6 +580,18 @@ int ocr_crop(const uint8_t* pages, const float* aabbs, const int32_t* w_valid, v
                                                n_per_page, rows, cols, h_out, w_out, s)
                   : launch_crop<float>(pages, aabbs, w_valid, out, n_boxes, n_per_page,
                                        rows, cols, h_out, w_out, s);
+}
+
+// in, out: (pages, h, w, channels) u8 on the card, channels 1 or 3, 1 <=
+// pages <= 64 (the wrapper checks); params: (pages, 4) float64 alpha, beta,
+// tx, ty in host memory, copied into the launch's arguments; fill 0..255.
+int ocr_rotate(const uint8_t* in, uint8_t* out, const double* params, int pages, int h, int w,
+               int channels, int fill, void* stream) {
+  if (pages < 1 || pages > kRotMaxPages) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (channels == 1) return launch_rotate<1>(in, out, params, pages, h, w, fill, s);
+  if (channels == 3) return launch_rotate<3>(in, out, params, pages, h, w, fill, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ of ocr_system_tpu/engine/classical_detector.py, its cv2 branch).
 All host work on the CPU: ``engine/host_image`` carries OpenCV's
 threshold, dilation and float resize bit for bit in numpy and scipy; the
 components come from the native op (``native/cc_label``), as in the JAX
-package. No trained weights: the deployment fallback when
+package. The deskew turn runs where ``device`` says (``detector.
+turn_pages``): the hybrid detector hands over the neural detector's
+device, so both passes turn on the card; a bare ``ClassicalDetector()``
+turns on the host. No trained weights: the deployment fallback when
 no DBNet checkpoint is available, and the classical half of the hybrid
 detector.
 """
@@ -16,6 +19,7 @@ detector.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ocr_system_tpu_torch.core.config import Settings, get_settings
 from ocr_system_tpu_torch.engine.detector import (
@@ -31,13 +35,16 @@ from ocr_system_tpu_torch.engine.host_image import (
 )
 from ocr_system_tpu_torch.native import cc_label
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
+from ocr_system_tpu_torch.utils.profiler import span
 
 
 class ClassicalDetector:
     """Same detect_batch contract as engine.detector.Detector."""
 
-    def __init__(self, settings: Settings | None = None):
+    def __init__(self, settings: Settings | None = None,
+                 device: str | torch.device | None = None):
         self.settings = settings or get_settings()
+        self.device = device  # where the deskew turn runs; None: the host
 
     def detect_batch(self, pages: list[np.ndarray]) -> list[DetResult]:
         return [self._detect_one(p) for p in pages]
@@ -47,7 +54,8 @@ class ClassicalDetector:
         if self.settings.enable_deskew:
             est = _estimate_skew_host(page)
             if MIN_DESKEW_DEG <= abs(est) <= MAX_DESKEW_DEG:
-                page = _rotate_host(page, est)
+                with span("classical.turn"):
+                    page = _rotate_host(page, est, self.device)
                 angle = est
         mask = _ink_mask(page)
         # the glyph-merging kernel follows the page's char height:

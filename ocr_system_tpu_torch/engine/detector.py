@@ -14,9 +14,11 @@ default) the (B, K, 13) component statistics, with a 16-level map kept on
 the device for the component-overflow fallback; 1 a bitpacked binarized
 map and a stride-4 pooled 16-level score map; 4 the 16-level map, two
 pixels per byte; 8 the map in uint8. Pages whose skew lies in
-[MIN_DESKEW_DEG, MAX_DESKEW_DEG] are rotated on the host and the batch runs
-again in the same mode. The gray canvases stay on the device for the
-recognizer (``DetResult.canvas_stack``).
+[MIN_DESKEW_DEG, MAX_DESKEW_DEG] are turned on the engine's device
+(``turn_pages``: on a card the rotate kernel, one launch per page shape;
+on the CPU ``host_image.rotate_cubic``), re-letterboxed on the host, and
+the batch runs again in the same mode. The gray canvases stay on the
+device for the recognizer (``DetResult.canvas_stack``).
 
 Under a mesh with dp > 1 (``core.mesh.engine_mesh``: the one set by
 ``mesh_context``, else the card's default; a CPU engine with no mesh set
@@ -55,6 +57,7 @@ from ocr_system_tpu_torch.engine.host_image import (
 )
 from ocr_system_tpu_torch.engine.selection_marks import page_components
 from ocr_system_tpu_torch.kernels.enhance import CONTRAST, SHARPNESS, enhance_gray, gray_means, to_unit
+from ocr_system_tpu_torch.kernels.rotate import rotate_pages
 from ocr_system_tpu_torch.models.dbnet import DBNet
 from ocr_system_tpu_torch.native.ink_walk import ink_expand_batch
 from ocr_system_tpu_torch.ops import image_ops
@@ -202,9 +205,11 @@ class Detector:
 
         Spans (``utils/profiler``): ``det.letterbox`` (the host letterbox,
         stack and wire pack), ``det.forward`` (the device forward's dispatch
-        and the host reads of its outputs), ``det.turn`` (the host deskew of
-        turned pages), ``det.emit`` (boxes, ink walk, page components), and
-        ``device_sync`` around each read that waits for the card."""
+        and the host reads of its outputs), ``det.turn`` (the deskew turn of
+        skewed pages, ``turn_pages``: on a card the copies and the kernel,
+        counting ``turn.card_pages``), ``det.emit`` (boxes, ink walk, page
+        components), and ``device_sync`` around each read that waits for
+        the card."""
         s = self.settings
         pages = list(pages)
         by_bucket: dict[int, list[int]] = {}
@@ -232,9 +237,11 @@ class Detector:
             applied = np.zeros(len(idxs), np.float32)
             if skewed:
                 with span("det.turn"):
-                    for j in skewed:
+                    turned = turn_pages([pages[idxs[j]] for j in skewed],
+                                        [float(angles[j]) for j in skewed], self.device)
+                    for j, page in zip(skewed, turned):
                         i = idxs[j]
-                        pages[i] = _rotate_host(pages[i], float(angles[j]))
+                        pages[i] = page
                         with span("det.letterbox"):
                             canvases[i], scales[i] = _letterbox_host(pages[i], bucket)
                         applied[j] = float(angles[j])
@@ -552,6 +559,46 @@ def _letterbox_host(page: np.ndarray, bucket: int) -> tuple[np.ndarray, float]:
     return canvas, scale
 
 
-def _rotate_host(page: np.ndarray, angle_deg: float) -> np.ndarray:
-    """Deskew rotation about the center, white border fill."""
-    return rotate_cubic(page, angle_deg, fill=255)
+def turn_pages(pages: list[np.ndarray], angles: list[float],
+               device: str | torch.device | None = None) -> list[np.ndarray]:
+    """Deskew rotation of each page about its center by its angle, white
+    border fill, each page as a new (H, W[, C]) uint8 array:
+    ``host_image.rotate_cubic`` bit for bit. On a CUDA ``device`` the pages
+    of one shape go up as one stack, the rotate kernel turns them in one
+    launch and they come back as one copy (the pages returned are rows of
+    it, in pageable memory of their own); elsewhere (``None`` included)
+    ``rotate_cubic`` turns them on the host."""
+    if device is None or torch.device(device).type != "cuda":
+        return [rotate_cubic(p, a, fill=255) for p, a in zip(pages, angles, strict=True)]
+    out: list[np.ndarray | None] = [None] * len(pages)
+    for ks, stack in _stacks_by_shape(pages):
+        turned = rotate_pages(torch.from_numpy(stack).to(device), [angles[k] for k in ks])
+        host = turned.cpu().numpy().reshape(len(ks), *pages[ks[0]].shape)
+        for k, page in zip(ks, host):
+            out[k] = page
+    return out
+
+
+def _stacks_by_shape(pages: list[np.ndarray]) -> list[tuple[list[int], np.ndarray]]:
+    """The pages grouped by shape, in order of first appearance: each
+    group's indices and its (n, H, W, C) uint8 stack in C order, whatever
+    the pages' strides (``np.stack`` keeps the inputs' stride order, and a
+    page may be a view of planar storage)."""
+    by_shape: dict[tuple[int, ...], list[int]] = {}
+    for k, p in enumerate(pages):
+        by_shape.setdefault(p.shape, []).append(k)
+    groups = []
+    for shape, ks in by_shape.items():
+        stack = np.empty((len(ks), *shape), np.uint8)
+        for row, k in enumerate(ks):
+            stack[row] = pages[k]
+        groups.append((ks, stack.reshape(len(ks), *shape[:2], -1)))
+    return groups
+
+
+def _rotate_host(page: np.ndarray, angle_deg: float,
+                 device: str | torch.device | None = None) -> np.ndarray:
+    """Deskew rotation about the center, white border fill, on ``device``
+    (``turn_pages``; the JAX detector's function of this name turns on the
+    host)."""
+    return turn_pages([page], [angle_deg], device)[0]

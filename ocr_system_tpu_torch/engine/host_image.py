@@ -317,17 +317,25 @@ def _cubic_weights(t: torch.Tensor) -> list[torch.Tensor]:
     return [c0, c1, c2, 1.0 - c0 - c1 - c2]
 
 
+def rotation_params(h: int, w: int, angle_deg: float) -> tuple[float, float, float, float]:
+    """``(alpha, beta, tx, ty)`` of the turn by ``angle_deg`` about
+    (w/2, h/2): the forward map M = [[alpha, beta, tx], [-beta, alpha, ty]]
+    is a rotation, so its inverse is the transpose with the shift undone.
+    ``rotate_cubic`` and the rotate kernel (``kernels/rotate.py``) both
+    sample with these."""
+    a = math.radians(angle_deg)
+    alpha, beta = math.cos(a), math.sin(a)
+    cx, cy = w / 2.0, h / 2.0
+    tx = (1 - alpha) * cx - beta * cy
+    ty = beta * cx + (1 - alpha) * cy
+    return alpha, beta, tx, ty
+
+
 def rotate_cubic(page: np.ndarray, angle_deg: float, fill: int = 255) -> np.ndarray:
     """Rotate about (w/2, h/2) by ``angle_deg`` (counter-clockwise), same
     size, bicubic, constant ``fill`` border."""
     h, w = page.shape[:2]
-    a = math.radians(angle_deg)
-    alpha, beta = math.cos(a), math.sin(a)
-    cx, cy = w / 2.0, h / 2.0
-    # the forward map M = [[alpha, beta, tx], [-beta, alpha, ty]] is a
-    # rotation, so its inverse is the transpose with the shift undone
-    tx = (1 - alpha) * cx - beta * cy
-    ty = beta * cx + (1 - alpha) * cy
+    alpha, beta, tx, ty = rotation_params(h, w, angle_deg)
     ys, xs = torch.meshgrid(
         torch.arange(h, dtype=torch.float64),
         torch.arange(w, dtype=torch.float64), indexing="ij",

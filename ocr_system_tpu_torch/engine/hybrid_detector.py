@@ -75,7 +75,8 @@ class HybridDetector:
                  device: str | torch.device | None = None):
         self.settings = settings or get_settings()
         self.neural = neural or Detector(self.settings, device=device)
-        self.classical = ClassicalDetector(self.settings)
+        # the classical pass turns on the neural detector's device too
+        self.classical = ClassicalDetector(self.settings, device=self.neural.device)
         # wall ms of the last detect_batch's two passes
         self.stage_ms: dict[str, float] = {}
 

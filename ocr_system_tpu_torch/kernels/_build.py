@@ -42,6 +42,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ocr_enhance": [_P, _I, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "ocr_crop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ocr_rotate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

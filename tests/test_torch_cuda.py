@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from ocr_system_tpu_torch.kernels import crop, enhance
+from ocr_system_tpu_torch.engine.detector import turn_pages
+from ocr_system_tpu_torch.engine.host_image import rotate_cubic
+from ocr_system_tpu_torch.kernels import crop, enhance, rotate
 from ocr_system_tpu_torch.utils.smoke import bf16_agrees, bf16_disagreement
 
 torch.set_num_threads(1)
@@ -76,6 +78,48 @@ def test_crop_kernel_matches_plain(cuda, rows, cols, n, width, out_dtype):
     assert crop.LAUNCHES.value == before + 1
 
 
+ROTATE_ANGLES = [0.5, -0.5, 1.999999, -1.999999, 4.0, -4.0, 45.0, -45.0]
+
+
+@pytest.mark.parametrize("fill", [255, 0])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("shape", [(960, 960), (961, 1283)])
+def test_rotate_kernel_is_rotate_cubic_bit_for_bit(cuda, shape, channels, fill):
+    """One batch of the eight angles, one launch, each page equal to the
+    host version's turn of it."""
+    rng = np.random.default_rng(7)
+    pages = rng.integers(0, 256, (len(ROTATE_ANGLES), *shape, channels), np.uint8)
+    # a white margin and dark strokes, as a scanned page has, beside noise
+    pages[:, :40] = 255
+    pages[:, 200:204] = 0
+    before = rotate.LAUNCHES.value
+    got = rotate.rotate_pages(torch.from_numpy(pages).to(cuda), ROTATE_ANGLES, fill).cpu()
+    torch.cuda.synchronize()
+    assert rotate.LAUNCHES.value == before + 1
+    for page, angle, out in zip(pages, ROTATE_ANGLES, got):
+        want = rotate_cubic(page, angle, fill)
+        assert np.array_equal(out.numpy(), want), (
+            angle, int((out.numpy() != want).sum()))
+
+
+def test_turn_pages_launches_once_per_shape(cuda):
+    """The detector's turn on a card: pages grouped by shape, one launch a
+    group, each page back as its own (H, W[, C]) u8 array equal to
+    rotate_cubic's."""
+    rng = np.random.default_rng(8)
+    pages = [rng.integers(0, 256, shape, np.uint8)
+             for shape in ((200, 300, 3), (120, 90, 3), (200, 300, 3), (64, 80))]
+    # a channel-last view of planar storage, as the benchmark's pages are
+    pages.append(rng.integers(0, 256, (3, 200, 300), np.uint8).transpose(1, 2, 0))
+    angles = [3.0, -2.0, 0.7, 10.0, -4.0]
+    before = rotate.LAUNCHES.value
+    got = turn_pages(pages, angles, cuda)
+    assert rotate.LAUNCHES.value == before + 3
+    for page, angle, out in zip(pages, angles, got):
+        assert isinstance(out, np.ndarray) and out.shape == page.shape
+        assert np.array_equal(out, rotate_cubic(page, angle, fill=255))
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     means = torch.zeros(1, device=cuda)
     with pytest.raises(ValueError):
@@ -95,3 +139,16 @@ def test_wrappers_reject_bad_inputs(cuda):
         crop.crop_boxes(pages, torch.zeros((1, 2, 4), device=cuda),
                         torch.ones((1, 2), dtype=torch.int32, device=cuda), (48, 80),
                         torch.float16)
+    page = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # dtype
+        rotate.rotate_pages(page.float(), [1.0])
+    with pytest.raises(ValueError):  # rank
+        rotate.rotate_pages(page[0], [1.0])
+    with pytest.raises(ValueError):  # not contiguous
+        rotate.rotate_pages(page.transpose(1, 2), [1.0])
+    with pytest.raises(ValueError):  # channels
+        rotate.rotate_pages(page[..., :2].contiguous(), [1.0])
+    with pytest.raises(ValueError):  # one angle per page
+        rotate.rotate_pages(page, [1.0, 2.0])
+    with pytest.raises(ValueError):  # fill is a u8 value
+        rotate.rotate_pages(page, [1.0], fill=256)

@@ -1,9 +1,10 @@
 """Whether what the timed path produced is right: the served outputs held
 against the plain float32 references of ``reference/``, after the window.
 
-Five comparisons; a cell compares those that its ``limits/<cell>.json``
-names, each against a limit of its own set from the readings of
-``tools/calibrate.py`` (PERF.md gives them):
+Six comparisons of its own, and any number of comparison files; a cell
+compares those that its ``limits/<cell>.json`` names, each against a limit
+of its own set from the readings of ``tools/calibrate.py`` (PERF.md gives
+them):
 
 - ``canvas_px``: the detector's canvases (the pages as its wire carries
   them, which the recognizer crops too) against the reference's own luma
@@ -33,6 +34,19 @@ names, each against a limit of its own set from the readings of
   the reference's logits on the same token windows: the widest gap in
   nats, and the share of tokens whose tag is not the reference's.
 
+- any other name: the comparison file ``checks/<name>.py``, which a cell
+  adds with no edit here. It names ``CAPTURE``, the program entry
+  (``module:function`` or ``module:Class.method``) whose calls in the
+  window every run samples, ``KEEP``, the most calls it keeps (a reservoir
+  drawn from a stream of its own, ``[seed, 3]``), ``keep(args, kwargs,
+  out)``, what it keeps of a call (moved to the host), and ``read(kept,
+  ctx, control=None)``, its number after the window (``ctx`` a
+  ``CheckContext``; with ``control``, the control's outputs in the
+  program's place), computed by a reference of its own under
+  ``reference/``; optionally ``FAULTS``, faults in the form of
+  ``faults.FAULTS``. A file that is missing, fails to import, or whose
+  capture or ``read`` fails reads None, with the error printed.
+
 The control puts the references, computed a precision below the
 configurations' bfloat16 (``models.FP8``), in the program's place
 (``control``): its outputs go through the same comparisons.
@@ -40,12 +54,24 @@ configurations' bfloat16 (``models.FP8``), in the program's place
 
 from __future__ import annotations
 
+import re
+import sys
+import traceback
+from dataclasses import dataclass
+from pathlib import Path
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench.record import load_reader
 from portbench.reference import models as M
 from portbench.reference import ops as R
+
+BUILTIN = frozenset({"canvas_px", "det_mad", "det_missed", "rec_gap", "layout_gap",
+                     "layout_flips"})
+CHECKS = Path(__file__).resolve().parent / "checks"
+CHECK_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_\-]{0,63}")
 
 JUDGE_WORDS = 300  # served words the recognition check reads at least
 LAYOUT_WINDOWS = 8  # forward windows the layout check reads at most
@@ -241,7 +267,81 @@ def check_all(config: dict, weights: dict, settings, det_samples, judged, layout
     checks["rec_gap"], n_words = rec_gap(pages, rec_sds, settings.rec_width_buckets,
                                          settings.det_wire_bits, device, control, gaps)
     del rec_sds
-    if extract:
+    if extract and "extract_checkpoint" in weights:
         lay_sd = M.load_state(weights["extract_checkpoint"], device)
         checks.update(layout_checks(layout_windows, lay_sd, rng, device, control))
     return checks, n_words
+
+
+# ---- comparison files ----
+
+@dataclass
+class CheckContext:
+    """What a comparison file's ``read`` has besides its kept calls."""
+
+    config: dict  # the configuration file
+    weights: dict  # its weight paths, absolute
+    settings: object  # the program's Settings of it
+    seed: int
+    device: str
+
+
+def _say(msg: str) -> None:
+    print(f"portbench: {msg}", file=sys.stderr)
+
+
+def load_check(name: str):
+    """The module of ``checks/<name>.py``, or None (the error printed)."""
+    if not CHECK_NAME.fullmatch(name):
+        _say(f"comparison {name!r}: not a name of a comparison file")
+        return None
+    path = CHECKS / f"{name}.py"
+    if not path.is_file():
+        _say(f"comparison {name!r}: no file {path}")
+        return None
+    try:
+        mod = load_reader(path)
+    except Exception:  # any error of the file's own reads as no number
+        _say(f"comparison {name!r}: {path} fails to import\n{traceback.format_exc()}")
+        return None
+    missing = [a for a in ("CAPTURE", "KEEP", "keep", "read") if not hasattr(mod, a)]
+    if missing:
+        _say(f"comparison {name!r}: {path} lacks {', '.join(missing)}")
+        return None
+    return mod
+
+
+def check_files(names) -> dict:
+    """Each name that is not a comparison of this module's own, with its
+    file's module or None."""
+    return {n: load_check(n) for n in names if n not in BUILTIN}
+
+
+def read_checks(files: dict, captures: dict, ctx: CheckContext,
+                control: M.Precision | None = None) -> dict:
+    """Each comparison file's number from its kept calls (``captures``:
+    name to ``serve.Capture``), or None with the error printed."""
+    out: dict[str, float | None] = {}
+    for name, mod in files.items():
+        cap = captures.get(name)
+        out[name] = None
+        if mod is None or cap is None:
+            continue
+        if cap.error is not None:
+            _say(f"comparison {name!r}: {cap.error}")
+            continue
+        try:
+            v = mod.read(cap.kept, ctx, control=control)
+            out[name] = None if v is None else float(v)
+        except Exception:  # any error of the file's own reads as no number
+            _say(f"comparison {name!r}: read failed\n{traceback.format_exc()}")
+    return out
+
+
+def check_faults() -> dict:
+    """The ``FAULTS`` of every comparison file there is."""
+    out = {}
+    for path in sorted(CHECKS.glob("*.py")):
+        mod = load_check(path.stem)
+        out.update(getattr(mod, "FAULTS", {}) if mod is not None else {})
+    return out

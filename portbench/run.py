@@ -6,8 +6,9 @@ from the root of a checkout. The cell, its configuration, its traffic mix
 and its metrics are found by name in ``BENCHMARK.json``: a configuration
 in ``portbench/configs/<name>.json``, a mix in
 ``portbench/traffic/<name>.json``, a per-layer metric's reader in
-``portbench/metrics/<name>.py``, and the cell's limits of its comparisons
-in ``portbench/limits/<cell>.json``.
+``portbench/metrics/<name>.py``, the cell's limits of its comparisons in
+``portbench/limits/<cell>.json``, and a comparison that is not one of
+``judge.py``'s own in ``portbench/checks/<name>.py``.
 
 Set-up (process start to the first timed call): imports, CUDA, the engine
 from ``get_engine`` with its weights and kernel builds (cached under
@@ -126,11 +127,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                for m in metrics if trace}
     probes = {r.PROBE: getattr(r, "LAUNCH", None) for r in readers.values()
               if getattr(r, "PROBE", None)}
+    check_files = judge.check_files(limits)
     builds_before = _builds()
     settings, engine, orch = serve.build(config, ROOT, mix.get("extract", False), device)
     flow = traffic.generate(mix, seed, seconds, ROOT)
-    rec = serve.Recorder(np.random.default_rng([seed, 2]), trace)
-    rec.install(engine, orch.extractor if orch else None, probes)
+    rec = serve.Recorder(np.random.default_rng([seed, 2]), trace, keep_seed=seed)
+    rec.install(engine, orch.extractor if orch else None, probes, check_files)
     serve.warm_up(engine, settings, orch, flow, rec)
     rec.reset()
     if device == "cuda":
@@ -143,7 +145,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     clock_offset = time.time() - time.perf_counter()
     with torch.profiler.record_function(tr.WINDOW):
         if flow.loop == "closed":
-            w = serve.closed_loop(engine, settings, flow.documents, seconds, rec)
+            w = serve.closed_loop(engine, settings, flow.documents, seconds, rec, orch=orch)
         else:
             w = serve.open_loop(engine, settings, orch, flow.uploads, seconds, rec)
         if device == "cuda":
@@ -161,7 +163,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         rate, pages, window_s = Y.closed_loop_rate(w.calls, w.deadline)
         values["pages_per_s"] = rate
         attempted = pages
-        failed = sum(s.failed for s in w.served)
+        failed = sum(s.failed for s in w.served) + w.failed_extracts
     else:
         window_s = w.end - w.start
         values["upload_latency_p50_s"] = Y.percentile(w.latencies, 50)
@@ -178,13 +180,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             out_metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
     # ---- the check, after the window, with the program's state let go ----
+    rec.restore()
     det_samples, layout_windows = rec.det_samples, rec.layout_windows
     judged = (rec.judge_pool, rec.longest)
+    captures = rec.captures
     del engine, orch, rec
     if device == "cuda":
         torch.cuda.empty_cache()
     checks, n_words = judge.check_all(config, weights, settings, det_samples, judged,
                                       layout_windows, flow.extract, seed, device)
+    checks.update(judge.read_checks(
+        check_files, captures, judge.CheckContext(config, weights, settings, seed, device)))
     # the cell compares the numbers its limits file names, each of which
     # the run has to read
     correct = failed == 0

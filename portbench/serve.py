@@ -1,10 +1,12 @@
 """The system under test and the benchmark's own spans around it.
 
-Builds the served engine (``get_engine``) and, for uploads, the extraction
-orchestrator from a configuration file, and drives the measured window:
-documents back to back through ``PageScheduler.process`` (closed loop), or
-uploads at their scheduled arrivals through ``process``, ``document_result``
-and ``ExtractionOrchestrator.fields_for`` (open loop).
+Builds the served engine (``get_engine``) and, where the mix extracts, the
+extraction orchestrator from a configuration file, and drives the measured
+window: documents back to back through ``PageScheduler.process`` (closed
+loop; with ``document_result`` and ``ExtractionOrchestrator.fields_for``
+inside each call where the mix extracts), or uploads at their scheduled
+arrivals through ``process``, ``document_result`` and ``fields_for`` (open
+loop).
 
 The spans are the benchmark's, around the program's calls, on the engine
 instance: each ``det_stage`` and ``rec_stage`` call with the engine's
@@ -14,13 +16,16 @@ samples: the detector's device outputs of a few waves with the words
 served on their pages, and finished pages (the window keeps no other
 pixels). Traced runs also record each launch of the kernels named by a
 per-layer metric's ``PROBE``: what its ``LAUNCH`` keeps, or the bytes of
-its tensors.
+its tensors. Every run records a seeded sample of the calls of each
+comparison file's ``CAPTURE`` (``checks/<name>.py``), each as its ``keep``
+returns it, on the host.
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib
+import inspect
 import threading
 import time
 import traceback
@@ -72,12 +77,59 @@ class Served:
     failed: int
 
 
+def reservoir_slot(kept: int, seen: int, limit: int, rng: np.random.Generator) -> int | None:
+    """Where the ``seen``-th item goes in a uniform sample of at most
+    ``limit`` that holds ``kept``: the next free place, or a place drawn
+    from ``rng`` (one draw), or None where the item is passed over."""
+    if kept < limit:
+        return kept
+    slot = int(rng.integers(seen))
+    return slot if slot < limit else None
+
+
+def _put(pool: list, slot: int, item) -> None:
+    if slot == len(pool):
+        pool.append(item)
+    else:
+        pool[slot] = item
+
+
+def to_host(x):
+    """``x`` with every tensor and array in it copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if type(x) in (list, tuple):
+        return type(x)(to_host(v) for v in x)
+    return x
+
+
+@dataclass
+class Capture:
+    """A comparison file's sample of the calls of its ``CAPTURE``: a
+    reservoir of at most ``limit`` calls, each as ``keep(args, kwargs,
+    out)`` returns it, moved to the host; ``error`` where the entry could
+    not be wrapped or a ``keep`` failed."""
+
+    keep: object
+    limit: int
+    kept: list = field(default_factory=list)
+    seen: int = 0
+    error: str | None = None
+
+
 @dataclass
 class Recorder:
     """The benchmark's spans and captures of one run."""
 
     rng: np.random.Generator
     trace: bool
+    # the comparison files' reservoirs draw from a stream of their own,
+    # default_rng([keep_seed, 3]), made anew at each reset
+    keep_seed: int = 0
     det_calls: list = field(default_factory=list)
     rec_calls: list = field(default_factory=list)
     layout_windows: list = field(default_factory=list)
@@ -91,9 +143,17 @@ class Recorder:
     judge_pool: list = field(default_factory=list)
     longest: tuple | None = None
     pages_seen: int = 0
+    captures: dict = field(default_factory=dict)  # comparison file name -> Capture
+    keep_rng: np.random.Generator | None = None
     local: threading.local = field(default_factory=threading.local)
+    lock: threading.Lock = field(default_factory=threading.Lock)
+    undo: list = field(default_factory=list)  # (owner, attr, original) per patch
 
-    def reset(self, rng: np.random.Generator | None = None) -> None:
+    def __post_init__(self):
+        self.keep_rng = np.random.default_rng([self.keep_seed, 3])
+
+    def reset(self, rng: np.random.Generator | None = None,
+              keep_seed: int | None = None) -> None:
         """Drop what was recorded (the set-up's calls), keeping the
         wrappers installed."""
         self.det_calls, self.rec_calls, self.layout_windows, self.det_samples = [], [], [], []
@@ -104,6 +164,26 @@ class Recorder:
             launches.clear()
         if rng is not None:
             self.rng = rng
+        if keep_seed is not None:
+            self.keep_seed = keep_seed
+        self.keep_rng = np.random.default_rng([self.keep_seed, 3])
+        for c in self.captures.values():
+            c.kept, c.seen = [], 0
+
+    def _patch(self, owner, attr: str, new) -> None:
+        """``setattr(owner, attr, new)``, undone by ``restore``."""
+        self.undo.append((owner, attr, vars(owner).get(attr)))
+        setattr(owner, attr, new)
+
+    def restore(self) -> None:
+        """Put back every attribute the recorder wrapped, of the engine's
+        objects, modules and classes."""
+        for owner, attr, original in reversed(self.undo):
+            if original is None:  # the attribute came from the class
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, original)
+        self.undo = []
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -115,7 +195,16 @@ class Recorder:
         finally:
             self.spans.append((name, t0, time.perf_counter()))
 
-    def install(self, engine, extractor=None, probes: dict | None = None) -> None:
+    def install(self, engine, extractor=None, probes: dict | None = None,
+                checks: dict | None = None) -> None:
+        """Wrap the program: the comparison files' captures (``checks``,
+        name to module, None for a file that did not load; first, so that
+        a method bound below is the wrapped one), the detector and
+        recognizer stages, the layout model's windows, and in a traced
+        run the metrics' probes."""
+        for name, mod in (checks or {}).items():
+            if mod is not None:
+                self._capture(name, mod.CAPTURE, mod.keep, mod.KEEP)
         det_stage, rec_stage = engine.det_stage, engine.rec_stage
         dbnet = getattr(engine.detector, "neural", engine.detector).model
         forward = dbnet.forward_nchw
@@ -148,9 +237,14 @@ class Recorder:
                                    "ms": {k: ms[k] for k in REC_KEYS if k in ms}})
             return out
 
-        dbnet.forward_nchw = forward_nchw
-        engine.det_stage, engine.rec_stage = det, rec
-        if extractor is not None and hasattr(extractor, "forward"):
+        self._patch(dbnet, "forward_nchw", forward_nchw)
+        self._patch(engine, "det_stage", det)
+        self._patch(engine, "rec_stage", rec)
+        from ocr_system_tpu_torch.extract.layout_model import LayoutModelExtractor
+
+        # the layout model's windows, which ``layout_gap`` reads; another
+        # extractor is left as it is
+        if isinstance(extractor, LayoutModelExtractor):
             lay_forward = extractor.forward
 
             def lay(ids, boxes, mask):
@@ -159,7 +253,7 @@ class Recorder:
                                             np.asarray(out["tag_logits"]).copy()))
                 return out
 
-            extractor.forward = lay
+            self._patch(extractor, "forward", lay)
         if self.trace:
             for spec, summary in (probes or {}).items():
                 self._probe(spec, summary)
@@ -177,16 +271,10 @@ class Recorder:
                 or tuple(prob.shape) != tuple(stack.shape)):
             return
         self.det_seen += 1
-        slot = len(self.det_samples)
-        if slot >= DET_SAMPLE_WAVES:
-            slot = int(self.rng.integers(self.det_seen))
-            if slot >= DET_SAMPLE_WAVES:
-                return
-        sample = DetSample(stack, prob, [(d.canvas_row, d.page, d.canvas_scale) for d in dets])
-        if slot == len(self.det_samples):
-            self.det_samples.append(sample)
-        else:
-            self.det_samples[slot] = sample
+        slot = reservoir_slot(len(self.det_samples), self.det_seen, DET_SAMPLE_WAVES, self.rng)
+        if slot is not None:
+            _put(self.det_samples, slot, DetSample(
+                stack, prob, [(d.canvas_row, d.page, d.canvas_scale) for d in dets]))
 
     def served(self, outputs) -> Served:
         """What a call gave back: the window keeps each page's word
@@ -221,15 +309,9 @@ class Recorder:
         if self.longest is None or len(page[1]) > len(self.longest[1]):
             self.longest = page
         self.pages_seen += 1
-        slot = len(self.judge_pool)
-        if slot >= JUDGE_PAGES:
-            slot = int(self.rng.integers(self.pages_seen))
-            if slot >= JUDGE_PAGES:
-                return
-        if slot == len(self.judge_pool):
-            self.judge_pool.append(page)
-        else:
-            self.judge_pool[slot] = page
+        slot = reservoir_slot(len(self.judge_pool), self.pages_seen, JUDGE_PAGES, self.rng)
+        if slot is not None:
+            _put(self.judge_pool, slot, page)
 
     def _probe(self, spec: str, summary=None) -> None:
         """Record every call of ``module:attr``: ``summary(args, kwargs,
@@ -261,11 +343,47 @@ class Recorder:
                 })
             return out
 
-        setattr(mod, attr, probed)
+        self._patch(mod, attr, probed)
+
+    def _capture(self, name: str, spec: str, keep, limit: int) -> None:
+        """Sample the calls of ``module:function`` or ``module:Class.method``
+        (a method's ``args`` without its instance) into a seeded reservoir.
+        The reservoir decides before ``keep`` runs, so a call it passes
+        over costs one draw."""
+        cap = self.captures[name] = Capture(keep, 0)
+        try:
+            cap.limit = int(limit)
+            mod_name, path = spec.split(":")
+            owner = importlib.import_module(mod_name)
+            *outer, attr = path.split(".")
+            for part in outer:
+                owner = getattr(owner, part)
+            fn = getattr(owner, attr)
+            method = inspect.isclass(owner) and inspect.isfunction(
+                inspect.getattr_static(owner, attr))
+            if not callable(fn) or (inspect.isclass(owner) and not method):
+                raise TypeError(f"{spec} is not a function or a plain method")
+        except (ValueError, ImportError, AttributeError, TypeError) as e:
+            cap.error = f"CAPTURE {spec!r}: {type(e).__name__}: {e}"
+            return
+
+        def captured(*a, **kw):
+            out = fn(*a, **kw)
+            with self.lock:
+                cap.seen += 1
+                slot = reservoir_slot(len(cap.kept), cap.seen, cap.limit, self.keep_rng)
+                if slot is not None:
+                    try:
+                        _put(cap.kept, slot, to_host(keep(a[1:] if method else a, kw, out)))
+                    except Exception:  # a keep that fails makes the check read nothing
+                        cap.error = traceback.format_exc()
+            return out
+
+        self._patch(owner, attr, captured)
 
 
 def build(config: dict, root: Path, extract: bool, device: str):
-    """The engine, and the orchestrator for uploads (None for backlogs)."""
+    """The engine, and the orchestrator where the mix extracts (else None)."""
     from ocr_system_tpu_torch.engine.pipeline import get_engine
 
     s = settings_for(config, root, root / "build" / "portbench_storage")
@@ -318,14 +436,20 @@ class Window:
     lateness: list = field(default_factory=list)  # start past due, idle worker
     extract_ms: list = field(default_factory=list)
     failed_uploads: int = 0
+    failed_extracts: int = 0  # closed loop: documents whose fields_for raised
     deadline: float = 0.0
     start: float = 0.0
     end: float = 0.0
 
 
-def closed_loop(engine, settings, docs: list, seconds: float, rec: Recorder) -> Window:
+def closed_loop(engine, settings, docs: list, seconds: float, rec: Recorder,
+                *, orch=None) -> Window:
     """Documents back to back; every call that begins before the deadline
-    runs to its end."""
+    runs to its end. With ``orch`` (a mix that extracts) each call ends
+    once the document's fields are out: ``fields_for`` on its result, in
+    the call; a document whose extraction raises counts as failed."""
+    from ocr_system_tpu_torch.engine.pipeline import document_result
+
     w = Window()
     w.start = time.perf_counter()
     w.deadline = w.start + seconds
@@ -336,6 +460,15 @@ def closed_loop(engine, settings, docs: list, seconds: float, rec: Recorder) -> 
             break
         doc = docs[k % len(docs)]
         outs, stats = run_document(engine, settings, doc, rec)
+        if orch is not None:
+            t1 = time.perf_counter()
+            try:
+                with rec.span("fields_for"):
+                    orch.fields_for(document_result(outs))
+            except Exception:  # a document that fails is counted, the window goes on
+                traceback.print_exc()
+                w.failed_extracts += 1
+            w.extract_ms.append((time.perf_counter() - t1) * 1000.0)
         w.calls.append((t0, time.perf_counter(), len(doc)))
         w.served.append(rec.served(outs))
         w.sched.append(stats)

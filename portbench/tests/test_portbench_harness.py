@@ -19,7 +19,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from portbench import record, run, traffic, yardstick as Y
+from portbench import judge, record, run, traffic, yardstick as Y
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -49,9 +49,15 @@ def test_each_cell_loads_from_data(cell):
     bench, c, config, mix, limits = run._cell(cell)
     assert config["recognizers"] and config["weights"]
     assert {"canvas_px", "det_missed", "rec_gap"} <= set(limits)
-    assert set(limits) <= {"canvas_px", "det_mad", "det_missed", "rec_gap", "layout_gap",
-                           "layout_flips"}
-    assert ("layout_flips" in limits) == bool(mix.get("extract"))
+    # a name is one of judge.py's own comparisons or a comparison file
+    assert judge.BUILTIN == {"canvas_px", "det_mad", "det_missed", "rec_gap", "layout_gap",
+                             "layout_flips"}
+    for name in set(limits) - judge.BUILTIN:
+        assert (ROOT / "portbench" / "checks" / f"{name}.py").is_file(), name
+    # the layout model's check where the mix extracts with it
+    layout = (config["settings"].get("extraction_method", "auto") in ("auto", "layout_model")
+              and "extract_checkpoint" in config["weights"])
+    assert ("layout_flips" in limits) == bool(mix.get("extract") and layout)
     reported = {m["name"] for m in run._metrics(bench, c, False)}
     assert "setup_s" in reported and len(reported) >= 2
     layer = run._metrics(bench, c, True)

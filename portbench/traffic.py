@@ -16,7 +16,7 @@ much work a run holds.
 
 Loops:
 - ``closed``: documents back to back; each document is the whole pool in a
-  seeded order.
+  seeded order (with ``"extract": true``, each through to its fields).
 - ``open``: uploads at the arrival times of a fixed schedule (its own seed
   in the file, so that every run offers the same load): exponential gaps
   at ``schedule_uploads`` stratified quantiles, in a seeded order; each
@@ -160,7 +160,7 @@ def generate(spec: dict, seed: int, seconds: float, root: Path) -> Traffic:
         pool = make_pool(spec["pages"], spec.get("perturb"), root, rng)
         docs = [[pool[i] for i in rng.permutation(len(pool))[: spec["doc_pages"]]]
                 for _ in range(spec["documents"])]
-        return Traffic("closed", documents=docs)
+        return Traffic("closed", documents=docs, extract=spec.get("extract", False))
     if spec["loop"] != "open":
         raise ValueError(f"unknown loop {spec['loop']!r}")
     pools = [make_pool(s["pages"], spec.get("perturb"), root, rng) for s in spec["sources"]]

@@ -1,7 +1,8 @@
 """Environment-driven configuration (port of ocr_system_tpu/core/config.py).
 
 Same fields, defaults and upper-cased environment variables as the JAX
-package's ``Settings``. A stdlib dataclass instead of pydantic: values are read from the
+package's ``Settings``, and the port's own ``llm_*`` fields of the
+generative extractor. A stdlib dataclass instead of pydantic: values are read from the
 process environment and an optional ``.env`` file, case-insensitively,
 unknown keys ignored, strings coerced to each field's type.
 """
@@ -101,7 +102,7 @@ class Settings:
 
     # --- extraction (replaces Gemini config, reference: config.py:52-62) ---
     # "auto": layout_model when checkpoints/extract exists, else rules
-    extraction_method: str = "auto"  # "auto" | "rules" | "layout_model"
+    extraction_method: str = "auto"  # "auto" | "rules" | "layout_model" | "llm"
     extraction_max_retries: int = 3
     extraction_timeout_s: float = 600.0  # whole-document budget
     # (reference: 120 s/image, 600 s/PDF timeouts, ocr_service.py:670,684)
@@ -276,6 +277,12 @@ class Settings:
     # capacity ceiling that forced deva content out of training)
     extract_dim: int = 512
     extract_depth: int = 8
+
+    # --- the generative field extractor (extraction_method "llm"; the
+    # port's own, no JAX counterpart: extract/llm.py) ---
+    llm_model: str = "deepseek_v2_lite"  # a preset of models/deepseek_v2.py
+    llm_weight_seed: int = 0  # seeded weights: the published ones are not read
+    llm_max_new_tokens: int = 512  # generated per document, no stop at an end token
 
     # ---- computed path properties ----
     @property

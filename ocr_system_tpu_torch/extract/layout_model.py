@@ -822,7 +822,9 @@ def get_extractor(settings: Settings | None = None,
     'auto' (the default) serves the trained layout model when its weights
     (``settings.extract_checkpoint``, else ``WEIGHTS``) exist and falls back
     to the rule tier otherwise, as the JAX package does with its orbax
-    checkpoint. 'layout_model' without its weights raises."""
+    checkpoint. 'layout_model' without its weights raises. 'llm' (the
+    port's own) serves the generative extractor of ``extract/llm.py``,
+    imported only then."""
     s = settings or get_settings()
     method = s.extraction_method
     if method == "auto":
@@ -835,4 +837,8 @@ def get_extractor(settings: Settings | None = None,
             method = "rules"
     if method == "layout_model":
         return LayoutModelExtractor(s, device=device)
+    if method == "llm":
+        from ocr_system_tpu_torch.extract.llm import DeepSeekV2Extractor
+
+        return DeepSeekV2Extractor(s, device=device)
     return RuleExtractor()

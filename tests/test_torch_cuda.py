@@ -152,3 +152,85 @@ def test_wrappers_reject_bad_inputs(cuda):
         rotate.rotate_pages(page, [1.0, 2.0])
     with pytest.raises(ValueError):  # fill is a u8 value
         rotate.rotate_pages(page, [1.0], fill=256)
+
+
+def test_the_decode_graph_steps_like_eager_decode(cuda):
+    """The generative extractor's decode step as one CUDA graph
+    (``GreedyDecoder``) gives the ids and logits of the same step run
+    eagerly."""
+    from ocr_system_tpu_torch.models import deepseek_v2 as D
+
+    model = D.DeepSeekV2(D.PRESETS["deepseek_v2_tiny"], 3, cuda, torch.bfloat16)
+    ids = torch.arange(3, 40, device=cuda)
+    logits, cache = model.prefill(ids, 60)
+    decoder = D.GreedyDecoder(model, cache, logits.argmax())
+    assert decoder.graph is not None
+    got = []
+    for _ in range(16):
+        got.append((int(decoder.step()), decoder.logits.clone()))
+    logits, cache = model.prefill(ids, 60)
+    eager = D.GreedyDecoder(model, cache, logits.argmax())
+    for i, logits in got:
+        eager._step()  # the captured step, run eagerly
+        eager.cache.length += 1
+        assert int(eager.ids) == i
+        torch.testing.assert_close(eager.logits, logits, rtol=0, atol=0)
+
+
+def test_documents_extract_at_once_beside_other_device_work(cuda):
+    """The server extracts each upload in a thread of its own while other
+    uploads run their OCR: ``generate`` in two threads at once, beside a
+    thread that all the while does what the OCR path does on the card
+    (allocates, launches, copies both ways, reads results back, waits for
+    its stream and for an event), gives each prompt the ids it gives alone,
+    and nothing raises: a decode graph's capture forbids unsafe calls in
+    its own thread only. (A device-wide ``torch.cuda.synchronize``, a new
+    pool stream that wraps round to the capture's, or a draw from the
+    default CUDA generator would still be refused during a capture; the
+    served path makes none.)"""
+    import threading
+
+    from ocr_system_tpu_torch.core.config import Settings
+    from ocr_system_tpu_torch.extract.llm import DeepSeekV2Extractor
+
+    ext = DeepSeekV2Extractor(Settings(llm_model="deepseek_v2_tiny", llm_max_new_tokens=24),
+                              device=cuda)
+    prompts = [list(range(3, 40)), list(range(50, 71))]
+    want = [ext.generate(p) for p in prompts]
+    stop, errors, got = threading.Event(), [], [[], []]
+
+    def other_work():
+        k = 0
+        try:
+            while not stop.is_set():
+                k += 1
+                torch.empty((k % 97 + 1) << 20, dtype=torch.uint8, device=cuda).fill_(1)
+                x = torch.zeros(256 * (64 + k % 97)).to(cuda).view(-1, 256) + k
+                y = x @ x.T
+                y.sum().item()
+                y[0, :4].tolist()
+                torch.cuda.current_stream().synchronize()
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    def extract(i):
+        try:
+            for _ in range(6):
+                got[i].append(ext.generate(prompts[i]))
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    other = threading.Thread(target=other_work)
+    other.start()
+    workers = [threading.Thread(target=extract, args=(i,)) for i in range(2)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    stop.set()
+    other.join()
+    assert not errors, errors
+    assert got == [[want[0]] * 6, [want[1]] * 6]

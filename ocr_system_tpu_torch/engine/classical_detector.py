@@ -18,6 +18,9 @@ detector.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 import torch
 
@@ -35,7 +38,7 @@ from ocr_system_tpu_torch.engine.host_image import (
 )
 from ocr_system_tpu_torch.native import cc_label
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
-from ocr_system_tpu_torch.utils.profiler import span
+from ocr_system_tpu_torch.utils.profiler import count, span
 
 
 class ClassicalDetector:
@@ -52,12 +55,15 @@ class ClassicalDetector:
     def _detect_one(self, page: np.ndarray) -> DetResult:
         angle = 0.0
         if self.settings.enable_deskew:
-            est = _estimate_skew_host(page)
+            with span("classical.skew"):
+                count("skew.pages")
+                est = _estimate_skew_host(page)
             if MIN_DESKEW_DEG <= abs(est) <= MAX_DESKEW_DEG:
                 with span("classical.turn"):
                     page = _rotate_host(page, est, self.device)
                 angle = est
-        mask = _ink_mask(page)
+        with span("classical.mask"):
+            mask = _ink_mask(page)
         # the glyph-merging kernel follows the page's char height:
         # inter-letter gaps scale with font size, not page width
         char_h = _estimate_char_height(mask)
@@ -127,22 +133,55 @@ def _components_to_boxes(
     return boxes[:max_boxes]
 
 
-def _estimate_skew_host(page: np.ndarray) -> float:
-    """Host skew estimate by the FFT shear projection of the device path
-    (ops/image_ops.estimate_skew_angle), in numpy on a 256 x 256 copy."""
-    n = 256
-    small = resize_linear(_luma_f64(page), (n, n))
-    ink = (small < small.mean()).astype(np.float32)
-    f = np.fft.fft(ink, axis=0)
+# the skew search's projection size; its angle grid is _skew_phases()'s
+SKEW_N = 256
+_SKEW_LOCK = threading.Lock()
+
+
+@functools.cache
+def _skew_phases() -> tuple[np.ndarray, np.ndarray]:
+    """The skew search's 31 candidate angles (degrees) and, stacked per
+    angle, the shear's phase factors ``exp(1j * phi)`` over (frequency k,
+    column x): (31, 256, 256) complex128, 32.5 MB. They depend on no page,
+    so they are built once per process, each row by the expression the
+    per-angle search evaluated, and read-only."""
+    n = SKEW_N
     angles = np.linspace(-15, 15, 31)
     k = np.fft.fftfreq(n) * n
     x = np.arange(n) - (n - 1) / 2.0
-    best, best_score = 0.0, -1.0
-    for a in angles:
-        phi = (-2.0 * np.pi / n) * np.tan(np.deg2rad(a)) * np.outer(k, x)
-        g = (f * np.exp(1j * phi)).sum(axis=1)
+    table = np.stack([
+        np.exp(1j * ((-2.0 * np.pi / n) * np.tan(np.deg2rad(a)) * np.outer(k, x)))
+        for a in angles
+    ])
+    angles.flags.writeable = table.flags.writeable = False
+    count("skew.table_builds")
+    return angles, table
+
+
+def _skew_scores(page: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each candidate angle and its score: the power of the sheared
+    projection's nonzero frequencies, from the page's column FFT."""
+    n = SKEW_N
+    small = resize_linear(_luma_f64(page), (n, n))
+    ink = (small < small.mean()).astype(np.float32)
+    f = np.fft.fft(ink, axis=0)
+    with _SKEW_LOCK:
+        angles, table = _skew_phases()
+    scores = np.empty(len(angles))
+    for i, e in enumerate(table):
+        g = (f * e).sum(axis=1)
         power = np.abs(g) ** 2
-        score = power[1:].sum()
+        scores[i] = power[1:].sum()
+    return angles, scores
+
+
+def _estimate_skew_host(page: np.ndarray) -> float:
+    """Host skew estimate by the FFT shear projection of the device path
+    (ops/image_ops.estimate_skew_angle), in numpy on a 256 x 256 copy:
+    the first angle of the highest score."""
+    angles, scores = _skew_scores(page)
+    best, best_score = 0.0, -1.0
+    for a, score in zip(angles, scores):
         if score > best_score:
             best, best_score = a, score
     return -best

@@ -28,10 +28,11 @@ from ocr_system_tpu_torch.core import weights
 from ocr_system_tpu_torch.core.config import Settings
 from ocr_system_tpu_torch.engine import classical_detector, glue_split, handwriting
 from ocr_system_tpu_torch.engine import hybrid_detector, selection_marks
-from ocr_system_tpu_torch.engine.host_image import rgb_to_gray
+from ocr_system_tpu_torch.engine.host_image import resize_linear, rgb_to_gray, rotate_cubic
 from ocr_system_tpu_torch.extract import postfix
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
-from ocr_system_tpu_torch.utils.smoke import draw_checkboxes
+from ocr_system_tpu_torch.utils.profiler import SPANS
+from ocr_system_tpu_torch.utils.smoke import draw_checkboxes, smoke_forms
 
 from export_torch_weights import glued_lines_page
 
@@ -54,6 +55,21 @@ def forms():
     return out
 
 
+# the committed Latin forms (960 x 960), the forms cell's pool
+SMOKE = [f"smoke{i}" for i in range(8)]
+# (form, degrees) of the turned copies the skew scores are held on too
+TURNED = [(2, 2.5), (5, -3.5)]
+
+
+@pytest.fixture(scope="module")
+def smoke_pages():
+    return smoke_forms()[0]
+
+
+def _page(forms, smoke_pages, page):
+    return smoke_pages[int(page[len("smoke"):])] if isinstance(page, str) else forms[page]
+
+
 def _same_boxes(a, b):
     assert len(a) == len(b)
     for x, y in zip(a, b):
@@ -72,9 +88,9 @@ def test_classical_detector_matches_jax(forms):
         assert len(g.boxes) > 5
 
 
-@pytest.mark.parametrize("page", range(4))
-def test_classical_steps_match_jax(forms, page):
-    p = forms[page]
+@pytest.mark.parametrize("page", [*range(4), *SMOKE])
+def test_classical_steps_match_jax(forms, smoke_pages, page):
+    p = _page(forms, smoke_pages, page)
     mask = classical_detector._ink_mask(p)
     assert np.array_equal(mask, jax_classical._ink_mask(p))
     assert (classical_detector._estimate_char_height(mask)
@@ -83,6 +99,60 @@ def test_classical_steps_match_jax(forms, page):
     for k in (3, 4, 7, 8):  # odd and even kernels
         assert np.array_equal(classical_detector._dilate_horizontal(mask, k),
                               jax_classical._dilate_horizontal(mask, k))
+
+
+def _plain_skew_scores(page):
+    """The skew search's 31 scores as the per-angle loop computed them,
+    rebuilding each angle's phase factors."""
+    n = 256
+    small = resize_linear(classical_detector._luma_f64(page), (n, n))
+    ink = (small < small.mean()).astype(np.float32)
+    f = np.fft.fft(ink, axis=0)
+    k = np.fft.fftfreq(n) * n
+    x = np.arange(n) - (n - 1) / 2.0
+    scores = []
+    for a in np.linspace(-15, 15, 31):
+        phi = (-2.0 * np.pi / n) * np.tan(np.deg2rad(a)) * np.outer(k, x)
+        g = (f * np.exp(1j * phi)).sum(axis=1)
+        scores.append((np.abs(g) ** 2)[1:].sum())
+    return np.array(scores)
+
+
+@pytest.mark.parametrize("page", [*SMOKE, *(f"turned{i}" for i in range(len(TURNED)))])
+def test_skew_scores_equal_the_per_angle_loop(smoke_pages, page):
+    """Scored against the phase table built once, every angle's score is
+    the per-angle recomputation's, bit for bit."""
+    if page.startswith("turned"):
+        form, deg = TURNED[int(page[len("turned"):])]
+        p = rotate_cubic(smoke_pages[form], deg, fill=255)
+    else:
+        p = _page(None, smoke_pages, page)
+    angles, scores = classical_detector._skew_scores(p)
+    assert np.array_equal(angles, np.linspace(-15, 15, 31))
+    want = _plain_skew_scores(p)
+    assert scores.dtype == want.dtype == np.float64
+    assert np.array_equal(scores.view(np.int64), want.view(np.int64))
+
+
+def test_the_skew_table_is_built_once(smoke_pages):
+    """The phase table is built at most once in the process: a detect_batch
+    after the first counts no build, and one ``skew.pages`` a page."""
+    det = classical_detector.ClassicalDetector(Settings(ocr_engine="classical"))
+    pages = list(smoke_pages[:3])
+    SPANS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        det.detect_batch(pages[:1])
+    # another test in this process may have built it already
+    assert sum(s.counts.get("skew.table_builds", 0) for s in SPANS.spans) <= 1
+    SPANS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        det.detect_batch(pages)
+    skews = [s for s in SPANS.spans if s.name == "classical.skew"]
+    assert [s.counts for s in skews] == [{"skew.pages": 1}] * len(pages)
+    assert not any("skew.table_builds" in s.counts for s in SPANS.spans)
+    assert classical_detector._skew_phases.cache_info().misses == 1
+    _, table = classical_detector._skew_phases()
+    assert table.shape == (31, 256, 256) and not table.flags.writeable
 
 
 def _random_boxes(rng, n, cls):

@@ -3,7 +3,8 @@ version (``host_image.rotate_cubic``) on CPU tensors and launches nothing;
 a CPU engine's detector turns its skewed pages on the host exactly as the
 per-page loop it replaced did, and counts no ``turn.card_pages``; the
 classical pass of the hybrid detector turns on the neural detector's
-device, inside a ``classical.turn`` span under ``det_classical``. The
+device, inside a ``classical.turn`` span under ``det_classical``, beside
+its ``classical.skew`` and ``classical.mask`` spans. The
 kernel itself is held against ``rotate_cubic`` bit for bit on the card
 (``tests/test_torch_cuda.py``)."""
 
@@ -173,3 +174,25 @@ def test_hybrid_detect_batch_records_the_classical_turn(pages, monkeypatch):
     assert not any("turn.card_pages" in s.counts for s in spans)
     # the hybrid result keeps the neural pass's page
     assert len(res) == 2 and res[0].skew_angle == 0.0
+
+
+def test_hybrid_detect_batch_records_the_classical_skew_and_mask(pages):
+    """The classical pass's skew search and ink mask are a ``classical.skew``
+    and a ``classical.mask`` span a page under ``det_classical``, outside
+    ``det_neural``; each skew span counts its page, and once the phase
+    table is built no span counts a build."""
+    hybrid = HybridDetector(Settings(**DET, ocr_engine="hybrid"), device="cpu")
+    hybrid.detect_batch(pages[:1])
+    SPANS.clear()
+    with cpu_profile():
+        hybrid.detect_batch(pages)
+    spans = list(SPANS.spans)
+    by_id = _by_id(spans)
+    (classical,) = [s for s in spans if s.name == "det_classical"]
+    for name in ("classical.skew", "classical.mask"):
+        got = [s for s in spans if s.name == name]
+        assert len(got) == len(pages) and all(s.parent == classical.id for s in got)
+        assert all(a.name != "det_neural" for s in got for a in _ancestors(s, by_id))
+    skews = [s for s in spans if s.name == "classical.skew"]
+    assert [s.counts for s in skews] == [{"skew.pages": 1}] * len(pages)
+    assert not any("skew.table_builds" in s.counts for s in spans)

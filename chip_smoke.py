@@ -438,10 +438,10 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
         failed.append(f"kernels not on the path: {launched}")
     # the Hindi pages' bar is reported, met or not, and does not fail the
     # phase: bf16 detection rounding moves small Devanagari boxes, and the
-    # re-segmentation and rescues amplify it. bf16_attribution_probe.py
-    # puts the gap in detection (the port's bf16 recognition reads 57 of
-    # the 58 JAX bf16 words on the JAX boxes), and no DBNet rounding point
-    # of XLA's closes it (ROADMAP Queue 3, closed residuals)
+    # re-segmentation and rescues amplify it. The attribution (CHANGES.md,
+    # the closing bring-up slice) puts the gap in detection (the port's bf16
+    # recognition reads 57 of the 58 JAX bf16 words on the JAX boxes), and no
+    # DBNet rounding point of XLA's closes it (ROADMAP Queue 3, closed residuals)
     row["hindi_bar_met"] = hindi_matched >= min_hindi_text * n_hindi
     if failed:
         emit({**row, "failed": failed})
@@ -2614,7 +2614,7 @@ def main() -> int:
     # held against the JAX package's bf16 outputs: every box, and
     # smoke.BF16_WORD_SHARE of the words with dot-leader runs of any length
     # alike (bf16 rounding moves a leader's decode by a dot in both
-    # packages: rec_bf16_probe.py)
+    # packages: CHANGES.md, the bf16 gate)
     t = time.perf_counter()
     hybrid = smoke.build_engine(dev, **expected["settings"], compute_dtype="bfloat16")
     hybrid.process_pages(as_pages(forms[:2]))  # first call: cuDNN/cuBLAS set-up

@@ -6,11 +6,12 @@ on the device: axis-aligned quads through the crop kernel
 (kernels/crop.py), every other quad through the general quad gather
 (ops/sampling.crop_quads). There is no box-height bound on the kernel, so
 every axis-aligned quad takes it (the JAX package's non-TPU split). Crops
-are grouped by width bucket and count-padded as in the reference; every
-group's device work is queued before any result is fetched. From a stack
-split over dp (``core.mesh.ShardedBatch``, the det stage's under a mesh)
-each dp device crops, recognizes and decodes its own pages, and, as in the
-JAX package, a split stack is never compacted.
+are grouped by width bucket and axis alignment; a group's batch is the
+stack rows that hold quads times its largest count of crops on one row,
+and every group's device work is queued before any result is fetched.
+From a stack split over dp (``core.mesh.ShardedBatch``, the det stage's
+under a mesh) each dp device crops, recognizes and decodes its own pages,
+and, as in the JAX package, a split stack is never compacted.
 """
 
 from __future__ import annotations
@@ -81,17 +82,10 @@ class Recognizer:
         for p_i, page in enumerate(pages):
             if len(quads_list[p_i]) > 0:
                 by_shape.setdefault(page.shape[:2], []).append(p_i)
-        for shape, page_idxs in by_shape.items():
-            n_pages = _pad_count(len(page_idxs), max(self.settings.det_batch_size, 1))
-            stack = np.zeros((n_pages, *shape), np.uint8)
-            for k, p_i in enumerate(page_idxs):
-                stack[k] = rgb_to_gray(pages[p_i])
-            row_targets = page_idxs + [-1] * (n_pages - len(page_idxs))
-            row_quads = [quads_list[p_i] for p_i in page_idxs] + [
-                np.zeros((0, 4, 2), np.float32)
-            ] * (n_pages - len(page_idxs))
-            stack_dev = torch.from_numpy(stack).to(self.device)
-            self._rec_on_stack(stack_dev, row_targets, row_quads, results)
+        for page_idxs in by_shape.values():
+            stack = np.stack([rgb_to_gray(pages[p_i]) for p_i in page_idxs])
+            self._rec_on_stack(torch.from_numpy(stack).to(self.device), page_idxs,
+                               [quads_list[p_i] for p_i in page_idxs], results)
         return _fill(results)
 
     def recognize_on_device_stack(self, stack_dev: torch.Tensor | ShardedBatch,
@@ -100,27 +94,16 @@ class Recognizer:
         (P, S, S), the det stage's canvases, whole or split over dp.
         quads_list: one (N, 4, 2) array per stack row, in canvas coords."""
         results: list[list[RecResult | None]] = [[None] * len(q) for q in quads_list]
-        page_idxs = [i for i, q in enumerate(quads_list) if len(q) > 0]
-        if page_idxs:
-            n_rows = stack_dev.shape[0]
+        rows = [i for i, q in enumerate(quads_list) if len(q) > 0]
+        if not rows:
+            return _fill(results)
+        if isinstance(stack_dev, ShardedBatch):
             # a split stack is never compacted: its rows stay on their
             # devices (the JAX package's rule for a dp-sharded stack)
-            if isinstance(stack_dev, ShardedBatch) or len(page_idxs) > n_rows // 2:
-                row_targets = [i if len(q) > 0 else -1 for i, q in enumerate(quads_list)]
-                row_quads = list(quads_list)
-            else:
-                # sparse wave: compact onto pow2-padded rows, as the
-                # reference does to keep its compile keys few
-                n_pad = _pad_count(len(page_idxs), n_rows)
-                sel = page_idxs + [page_idxs[0]] * (n_pad - len(page_idxs))
-                stack_dev = stack_dev.index_select(
-                    0, torch.tensor(sel, device=stack_dev.device)
-                )
-                row_targets = page_idxs + [-1] * (n_pad - len(page_idxs))
-                row_quads = [quads_list[i] for i in page_idxs] + [
-                    np.zeros((0, 4, 2), np.float32)
-                ] * (n_pad - len(page_idxs))
-            self._rec_on_stack(stack_dev, row_targets, row_quads, results)
+            rows = list(range(len(quads_list)))
+        elif len(rows) < stack_dev.shape[0]:
+            stack_dev = stack_dev.index_select(0, torch.tensor(rows, device=stack_dev.device))
+        self._rec_on_stack(stack_dev, rows, [quads_list[i] for i in rows], results)
         return _fill(results)
 
     def _run(self, stack_dev: torch.Tensor | ShardedBatch, quads: np.ndarray,
@@ -187,14 +170,14 @@ class Recognizer:
                       results: list[list[RecResult | None]]) -> None:
         """Width-bucket each stack row's quads, split by axis alignment, run
         every group, then fetch. row_targets[k] is the results row that
-        stack row k writes to (-1 = padding)."""
+        stack row k writes to."""
         s = self.settings
         h_rec = s.rec_image_height
         buckets = sorted(s.rec_width_buckets)
         n_pages = stack_dev.shape[0]
         per_bucket: dict[tuple[int, bool], list[list[tuple[int, np.ndarray, float]]]] = {}
         for k, quads in enumerate(row_quads):
-            if row_targets[k] < 0 or len(quads) == 0:
+            if len(quads) == 0:
                 continue
             widths_px = np.linalg.norm(quads[:, 1] - quads[:, 0], axis=1)
             heights_px = np.linalg.norm(quads[:, 3] - quads[:, 0], axis=1)
@@ -210,12 +193,7 @@ class Recognizer:
         pending = []
         group_list = list(per_bucket.items())
         for (bucket, axis_aligned), groups in group_list:
-            # padding crops cost SVTR compute proportional to the bucket, so
-            # the count floor shrinks for wide buckets
-            floor = max(1, s.rec_pad_floor * min(s.rec_width_buckets) // bucket)
-            n_per_page = max(
-                _pad_count(max(len(g) for g in groups), s.rec_batch_size), floor
-            )
+            n_per_page = max(len(g) for g in groups)
             q = np.zeros((n_pages, n_per_page, 4, 2), np.float32)
             w_valid = np.full((n_pages, n_per_page), 1, np.int32)
             for k, group in enumerate(groups):
@@ -228,7 +206,7 @@ class Recognizer:
                     w_valid[k, j] = wv
             rows = [k for k, group in enumerate(groups) if group]
             # counters: the real crops, and the crop slots SVTR runs
-            # (padding crops and padding rows included)
+            # (the padding of the ragged rectangle included)
             count("rec.crops", sum(len(g) for g in groups))
             count("rec.slots", q.shape[0] * q.shape[1])
             ids, conf = self._run(stack_dev, q, w_valid, bucket, axis_aligned, rows)
@@ -285,14 +263,3 @@ def _first_ge(buckets: list[int], w: float) -> int:
         if w <= b:
             return b
     return buckets[-1]
-
-
-def _pad_count(n: int, batch: int) -> int:
-    """Pad to power-of-two-ish steps up to batch, then multiples of batch —
-    bounds compile cache size to O(log batch) entries per bucket."""
-    if n >= batch:
-        return ((n + batch - 1) // batch) * batch
-    p = 1
-    while p < n:
-        p *= 2
-    return min(p, batch)

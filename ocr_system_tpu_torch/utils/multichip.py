@@ -130,8 +130,8 @@ def _engine(mesh: Mesh, dp: int) -> dict:
              for i, f in enumerate(forms[:dp * 2])]
     with mesh_context(mesh):
         eng = smoke.new_engine(mesh.lead, **smoke.NEURAL, det_image_buckets=(320,),
-                               rec_width_buckets=(80, 160), rec_batch_size=8,
-                               det_batch_size=dp, compute_dtype="float32")
+                               rec_width_buckets=(80, 160), det_batch_size=dp,
+                               compute_dtype="float32")
         dets = eng.det_stage(pages)
         if dp > 1 and not isinstance(dets[0].canvas_stack, ShardedBatch):
             raise AssertionError("the det canvases are not split over dp")

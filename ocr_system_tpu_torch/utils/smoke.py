@@ -246,7 +246,7 @@ def box_iou(a: list[float], b: list[float]) -> float:
 # decodes one dot longer or shorter under small changes of bf16 rounding:
 # the JAX package's own bf16 texts of the committed forms move on up to
 # 11% of the words when only XLA's CPU options change, nearly all of them
-# dot leaders (rec_bf16_probe.py).
+# dot leaders (CHANGES.md, the bf16 gate).
 BF16_WORD_SHARE = 0.98
 _LEADER = re.compile(r"\.{2,}")
 

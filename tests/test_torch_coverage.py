@@ -74,6 +74,9 @@ EXCEPTIONS = {
     "engine/recognizer.py::Recognizer._multi_crop_rec_fn": _JIT,
     "engine/recognizer.py::Recognizer._multi_aabb_rec_fn": _JIT,
     "engine/recognizer.py::Recognizer._stack_placer": _JIT,
+    "engine/recognizer.py::_pad_count": (
+        "pads page and crop counts to keep XLA's compile keys few; eager PyTorch has "
+        "no compile cache, so the port's batches are the ragged rectangle"),
     "core/mesh.py::data_sharding": _SHARDING,
     "parallel/sharding.py::batch_spec": _SHARDING,
     "parallel/sharding.py::batch_sharding": _SHARDING,

@@ -23,6 +23,7 @@ from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
 from ocr_system_tpu_torch.engine.detector import DetResult
 from ocr_system_tpu_torch.engine.pipeline import TorchOCREngine, box_recognizers, get_engine
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
+from ocr_system_tpu_torch.utils.profiler import SPANS, span
 
 from export_torch_weights import draw_forms, jax_wave_probe
 
@@ -227,6 +228,76 @@ def test_masked_dispatch_matches_unmasked(engines):
         assert [r.text for r in sparse[i]] == [r.text for r in full[i]]
         np.testing.assert_allclose([r.confidence for r in sparse[i]],
                                    [r.confidence for r in full[i]], atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def wave(engines):
+    """test_masked_dispatch_matches_unmasked's stack of 8 drawn pages, 6
+    axis-aligned quads a row, and every crop's result from the full stack."""
+    from ocr_system_tpu_torch.utils.smoke import draw_page
+
+    rng = np.random.default_rng(11)
+    stack = torch.from_numpy(np.stack([draw_page(rng, 256, 256)[..., 0] for _ in range(8)]))
+    quads = []
+    for _ in range(8):
+        x0 = rng.uniform(5, 120, 6)
+        y0 = rng.uniform(5, 220, 6)
+        w, h = rng.uniform(20, 120, 6), rng.uniform(10, 24, 6)
+        quads.append(np.stack([np.stack([x0, y0], -1), np.stack([x0 + w, y0], -1),
+                               np.stack([x0 + w, y0 + h], -1), np.stack([x0, y0 + h], -1)],
+                              1).astype(np.float32))
+    return stack, quads, engines[1].recognizer.recognize_on_device_stack(stack, quads)
+
+
+def _rectangle_slots(row_quads, buckets, h_rec):
+    """Σ over width buckets of (rows holding quads × the bucket's largest
+    count on one row): the slots of axis-aligned quads' ragged rectangles."""
+    buckets = np.asarray(sorted(buckets))
+    per_row = []
+    for q in row_quads:
+        if len(q):
+            w = np.linalg.norm(q[:, 1] - q[:, 0], axis=1)
+            aspect = w / np.linalg.norm(q[:, 3] - q[:, 0], axis=1)
+            b = np.searchsorted(buckets, np.clip(aspect * h_rec, 16, buckets[-1]))
+            per_row.append(np.bincount(b, minlength=len(buckets)))
+    return len(per_row) * int(np.max(per_row, axis=0).sum())
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "host_pages"])
+def test_dispatch_runs_the_ragged_rectangle(engines, wave, case):
+    """A group's batch is the stack rows that hold quads × its largest count
+    on one row, with no page, row or count padding beyond it: ``rec.slots``
+    over one recorded dispatch equals that sum, on a dense wave with counts
+    that are no powers of two, a sparse wave (2 of 8 rows) and host pages
+    (one of 3 without quads); every crop reads as from the full stack."""
+    stack, quads, full = wave
+    rec = engines[1].recognizer
+    empty = np.zeros((0, 4, 2), np.float32)
+    if case == "dense":
+        counts = (3, 5, 6, 3, 6, 5, 3, 6)
+        row_quads = [q[:c] for q, c in zip(quads, counts)]
+        want = [f[:c] for f, c in zip(full, counts)]
+    elif case == "sparse":
+        row_quads = [q if i in (1, 5) else empty for i, q in enumerate(quads)]
+        want = [f if i in (1, 5) else [] for i, f in enumerate(full)]
+    else:
+        pages = [np.repeat(stack[i].numpy()[..., None], 3, -1) for i in (0, 2, 3)]
+        row_quads = [quads[0], empty, quads[3][:5]]
+        want = [full[0], [], full[3][:5]]
+    SPANS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), \
+            span("dispatch"):
+        got = (rec.recognize_pages(pages, row_quads) if case == "host_pages"
+               else rec.recognize_on_device_stack(stack, row_quads))
+    total = {k: sum(s.counts.get(k, 0) for s in SPANS.spans) for k in ("rec.crops", "rec.slots")}
+    SPANS.clear()
+    assert total["rec.crops"] == sum(len(q) for q in row_quads)
+    assert total["rec.slots"] == _rectangle_slots(
+        row_quads, rec.settings.rec_width_buckets, rec.settings.rec_image_height)
+    for g, w in zip(got, want):
+        assert [r.text for r in g] == [r.text for r in w]
+        np.testing.assert_allclose([r.confidence for r in g], [r.confidence for r in w],
+                                   atol=1e-6)
 
 
 def test_box_recognizers_names_every_box(pages, classical_boxes):

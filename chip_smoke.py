@@ -7,7 +7,9 @@ Builds the CUDA kernels from the checkout and holds each form of each one
 (bf16 and float32 out) against its plain PyTorch version, bit for bit, at
 the shapes the serving path gives it (8 pages at the 960 bucket, every rec
 width; the rotate kernel on the 8 committed forms against
-``host_image.rotate_cubic`` on the host), timing it cold (the L2 evicted
+``host_image.rotate_cubic`` on the host; the ink-mask kernel on each of
+them against its plain version and the classical detector's host mask),
+timing it cold (the L2 evicted
 before the launch; the kernels line reports this time for the serving
 bf16 form) and warm. Then it runs
 the port with the trained weights (``weights/*.npz``) at full model width:
@@ -171,20 +173,21 @@ def native_counters() -> dict:
 
 
 def reset_counts() -> None:
-    from ocr_system_tpu_torch.kernels import crop, enhance, rotate
+    from ocr_system_tpu_torch.kernels import crop, enhance, ink_mask, rotate
 
     enhance.LAUNCHES.reset()
     crop.LAUNCHES.reset()
     rotate.LAUNCHES.reset()
+    ink_mask.LAUNCHES.reset()
     for c in native_counters().values():
         c.reset()
 
 
 def counts() -> dict[str, int]:
-    from ocr_system_tpu_torch.kernels import crop, enhance, rotate
+    from ocr_system_tpu_torch.kernels import crop, enhance, ink_mask, rotate
 
     return {"enhance": enhance.LAUNCHES.value, "crop": crop.LAUNCHES.value,
-            "rotate": rotate.LAUNCHES.value}
+            "rotate": rotate.LAUNCHES.value, "ink_mask": ink_mask.LAUNCHES.value}
 
 
 def native_calls() -> dict[str, int]:
@@ -436,6 +439,10 @@ def phase_hybrid(engine, pages, expected: list[dict], min_text: float, min_boxes
     if engine.recognizer.device.type == "cuda" and (
             launched["enhance"] <= 0 or launched["crop"] <= 0):
         failed.append(f"kernels not on the path: {launched}")
+    # the classical pass masks each page once, on the card
+    if engine.recognizer.device.type == "cuda" and launched["ink_mask"] != len(pages):
+        failed.append(f"the ink mask launched {launched['ink_mask']} times for "
+                      f"{len(pages)} pages")
     # the Hindi pages' bar is reported, met or not, and does not fail the
     # phase: bf16 detection rounding moves small Devanagari boxes, and the
     # re-segmentation and rescues amplify it. The attribution (CHANGES.md,
@@ -2509,6 +2516,58 @@ def kernel_rotate(dev, flush, forms) -> dict:
     return {"name": "rotate", **row}
 
 
+# float32 operations a pixel of the ink mask's Gaussian, an FMA counted as
+# two: a multiply and 30 FMAs a row, a multiply, 15 adds and 15 FMAs a column
+INK_MASK_FLOPS_PER_PX = 1 + 2 * 30 + 1 + 15 + 2 * 15
+
+
+def kernel_ink_mask(dev, flush, forms) -> dict:
+    """The ink-mask kernel at the served shape: each of the 8 committed
+    forms (RGB, 960 x 960) in a launch of its own, bit for bit its plain
+    version and the host mask (``classical_detector._ink_mask``). Times the
+    kernel cold and warm on one page (CUDA events), the plain version and
+    the host mask (host clock, a page each), and the mask as the detector
+    pays it (``_ink_mask_on_card``: the page up, the launch, the mask back;
+    host clock)."""
+    import torch
+
+    from ocr_system_tpu_torch.engine import classical_detector
+    from ocr_system_tpu_torch.kernels import ink_mask
+
+    forms = np.ascontiguousarray(forms)
+    b, h, w, c = forms.shape
+    plain_s = host_s = 0.0
+    reset_counts()
+    for k, form in enumerate(forms):
+        t = time.perf_counter()
+        want = ink_mask.ink_mask_pages_plain(torch.from_numpy(form))
+        t1 = time.perf_counter()
+        host = classical_detector._ink_mask(form)
+        plain_s, host_s = plain_s + t1 - t, host_s + time.perf_counter() - t1
+        got = ink_mask.ink_mask_pages(torch.from_numpy(form).to(dev)).cpu()
+        if not torch.equal(got, want) or not np.array_equal(got.numpy(), host):
+            raise AssertionError(f"ink_mask: form {k}: {int((got != want).sum())} pixels off "
+                                 f"the plain version, {int((got.numpy() != host).sum())} off "
+                                 "the host mask")
+    if ink_mask.LAUNCHES.value != b:
+        raise AssertionError(f"ink_mask: {ink_mask.LAUNCHES.value} launches for {b} pages")
+    page = torch.from_numpy(forms[0]).to(dev)
+    call = lambda: ink_mask.ink_mask_pages(page)  # noqa: E731
+    row = {"form": f"{h}x{w}x{c} u8 -> {h}x{w} u8, one page", "bit_exact": True,
+           "pages": b, "ms": cold_ms(call, flush), "warm_ms": cuda_ms(call),
+           "plain_ms": plain_s * 1e3 / b, "plain_device": "host",
+           "host_mask_ms": host_s * 1e3 / b, "library_ms": None, "shape": [h, w, c]}
+    classical_detector._ink_mask_on_card(forms[0], dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for form in forms:
+        classical_detector._ink_mask_on_card(form, dev)
+    row["mask_ms"] = (time.perf_counter() - t) * 1e3 / b
+    row.update(bound(page.numel() + h * w, h * w * INK_MASK_FLOPS_PER_PX))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return {"name": "ink_mask", **row}
+
+
 def main() -> int:
     try:
         import torch
@@ -2553,8 +2612,10 @@ def main() -> int:
     from ocr_system_tpu_torch.utils import smoke
 
     k_rot = kernel_rotate(dev, flush, smoke.smoke_forms()[0])
+    k_ink = kernel_ink_mask(dev, flush, smoke.smoke_forms()[0])
     del flush
     emit({"phase": "kernels", "enhance": k_enh, "crop": k_crop, "rotate": k_rot,
+          "ink_mask": k_ink,
           "elapsed_s": time.perf_counter() - t})
 
     # ---- phase 2: the trained weights and the committed forms ----

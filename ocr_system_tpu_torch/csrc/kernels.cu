@@ -7,7 +7,8 @@
 // each one. Each writes float32 or bfloat16 (rounded to nearest even, as
 // Tensor.to(torch.bfloat16) rounds), the model's compute dtype, so no
 // separate cast pass follows. rotate, the deskew turn, works in float64 on
-// u8 pages and is bound by the host copies around it (its note).
+// u8 pages and is bound by the host copies around it (its note); so is
+// ink_mask, the classical detector's adaptive threshold, u8 in and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -506,6 +507,114 @@ __global__ void __launch_bounds__(kRotTileW * kRotTileH) rotate_kernel(
   for (int c = 0; c < C; ++c) dst[c] = (uint8_t)fmin(fmax(rint(acc[c]), 0.0), 255.0);
 }
 
+// ---------------------------------------------------------------------------
+// ink_mask: the classical detector's ink mask,
+// engine/classical_detector.py::_ink_mask
+//
+// Replaces no Pallas kernel: the JAX package masks on the host with
+// cv2.adaptiveThreshold (ocr_system_tpu/engine/classical_detector.py::
+// _ink_mask), and the port's host version blurs in float64 with scipy and
+// recomputes the pixels near a rounding tie with OpenCV's float32
+// arithmetic in numpy (engine/host_image.py::adaptive_threshold), 80-100 ms
+// a 960 x 960 page. Per pixel: the luma as numpy computes it in float64,
+// (0.299 r + 0.587 g) + 0.114 b, each product and sum rounded, truncated to
+// u8; OpenCV's float32 separable Gaussian of the luma (31 taps, the weights
+// of host_image.gaussian_kernel_f32(31), replicated border); the mean
+// rounded half to even (rintf); 1 where luma - mean <= -c.
+//
+// Exact: the Gaussian rounds as OpenCV's does (host_image._gaussian_exact
+// writes the rule down). Rows first: RN(v0 k0), then the taps left to
+// right, each by a fused multiply-add where x < q4 and by a multiply and
+// an add past it. Then columns: RN(acc[r] k[r]), then for t = 1..r the pair
+// RN(acc[r + t] + acc[r - t]) times k[r + t], added fused where x < q8 and
+// by a multiply and an add past it. q8 = floor(w / 8) 8 and q4 = q8 + 4
+// where that is <= w, else q8: OpenCV's 8- and 4-wide vector loops and
+// their scalar tail. __fmaf_rn, __fmul_rn and __fadd_rn round correctly,
+// so each step is OpenCV's float32 value, and the mask is the host
+// version's bit for bit without its tie repair. nvcc contracts a * b + c
+// into an FMA by default, so every step is written with the intrinsics,
+// the float64 luma with __dmul_rn / __dadd_rn.
+//
+// Bound: a 960^2 RGB page is 2.76 MB in and 0.92 MB out, 1.1 us at 3.35
+// TB/s; its float32 work, 107 operations a pixel (a multiply and 30 FMAs
+// a row, a multiply, 15 adds and 15 FMAs a column), 1.5 us at 67 TFLOP/s.
+// In the detector the page goes up and the mask comes back over PCIe, a
+// millisecond or so, and the host waits for the mask. Design: a block of
+// 32 x 8 threads owns a 32 x 32 output tile. It computes the luma of the
+// tile and its 15-pixel halo, clamped to the page, into shared memory
+// (62 x 62 floats), runs the row pass of those 62 rows over the tile's 32
+// columns into a second shared tile (62 x 32 floats), then the column pass
+// in registers, and stores u8. A warp reads 32 neighbouring floats from
+// shared memory at every step. The pass rules depend on x and w only, so
+// no block needs another's work. The 31 weights and c travel by value in
+// the launch's arguments.
+constexpr int kMaskTile = 32;
+constexpr int kMaskRadius = 15;
+constexpr int kMaskTaps = 2 * kMaskRadius + 1;
+constexpr int kMaskSpan = kMaskTile + 2 * kMaskRadius;
+constexpr int kMaskThreads = kMaskTile * 8;
+
+struct MaskArgs {
+  float k[kMaskTaps];
+  int c;   // the threshold's offset: ink where luma - mean <= -c
+  int q4;  // columns below q4: the row pass fuses
+  int q8;  // columns below q8: the column pass fuses
+};
+
+__global__ void __launch_bounds__(kMaskThreads) ink_mask_kernel(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int h, int w,
+    const __grid_constant__ MaskArgs p) {
+  __shared__ float luma[kMaskSpan][kMaskSpan];
+  __shared__ float rows[kMaskSpan][kMaskTile];
+  const int x0 = blockIdx.x * kMaskTile, y0 = blockIdx.y * kMaskTile;
+  const int tid = threadIdx.y * kMaskTile + threadIdx.x;
+  for (int i = tid; i < kMaskSpan * kMaskSpan; i += kMaskThreads) {
+    const int ly = i / kMaskSpan, lx = i - ly * kMaskSpan;
+    const int gy = min(max(y0 - kMaskRadius + ly, 0), h - 1);
+    const int gx = min(max(x0 - kMaskRadius + lx, 0), w - 1);
+    const uint8_t* px = in + ((size_t)gy * w + gx) * 3;
+    const double y = __dadd_rn(__dadd_rn(__dmul_rn(0.299, (double)__ldg(px)),
+                                         __dmul_rn(0.587, (double)__ldg(px + 1))),
+                               __dmul_rn(0.114, (double)__ldg(px + 2)));
+    luma[ly][lx] = (float)(int)y;  // truncated, as numpy's astype(uint8)
+  }
+  __syncthreads();
+  for (int i = tid; i < kMaskSpan * kMaskTile; i += kMaskThreads) {
+    const int ly = i / kMaskTile, lx = i - ly * kMaskTile;
+    const float* v = &luma[ly][lx];  // taps at columns x - r .. x + r
+    float acc = __fmul_rn(v[0], p.k[0]);
+    if (x0 + lx < p.q4) {
+#pragma unroll
+      for (int t = 1; t < kMaskTaps; ++t) acc = __fmaf_rn(v[t], p.k[t], acc);
+    } else {
+#pragma unroll
+      for (int t = 1; t < kMaskTaps; ++t) acc = __fadd_rn(acc, __fmul_rn(v[t], p.k[t]));
+    }
+    rows[ly][lx] = acc;
+  }
+  __syncthreads();
+  for (int i = tid; i < kMaskTile * kMaskTile; i += kMaskThreads) {
+    const int ly = i / kMaskTile, lx = i - ly * kMaskTile;
+    const int x = x0 + lx, y = y0 + ly;
+    if (x >= w || y >= h) continue;
+    const int cy = ly + kMaskRadius;
+    float mean = __fmul_rn(rows[cy][lx], p.k[kMaskRadius]);
+    if (x < p.q8) {
+#pragma unroll
+      for (int t = 1; t <= kMaskRadius; ++t)
+        mean = __fmaf_rn(__fadd_rn(rows[cy + t][lx], rows[cy - t][lx]), p.k[kMaskRadius + t],
+                         mean);
+    } else {
+#pragma unroll
+      for (int t = 1; t <= kMaskRadius; ++t)
+        mean = __fadd_rn(mean, __fmul_rn(__fadd_rn(rows[cy + t][lx], rows[cy - t][lx]),
+                                         p.k[kMaskRadius + t]));
+    }
+    const int gray = (int)luma[cy][lx + kMaskRadius];
+    out[(size_t)y * w + x] = gray - (int)rintf(mean) <= -p.c ? 1 : 0;
+  }
+}
+
 template <typename TIn, typename TOut, int NOUT>
 int launch_enhance(const EnhanceArgs& p, int planes, cudaStream_t stream) {
   const dim3 grid((p.w + kEnhTileW - 1) / kEnhTileW, (p.h + kEnhRows - 1) / kEnhRows, planes);
@@ -592,6 +701,22 @@ int ocr_rotate(const uint8_t* in, uint8_t* out, const double* params, int pages,
   if (channels == 1) return launch_rotate<1>(in, out, params, pages, h, w, fill, s);
   if (channels == 3) return launch_rotate<3>(in, out, params, pages, h, w, fill, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// page: (h, w, 3) u8 RGB on the card; mask: (h, w) u8; taps: the 31
+// float32 weights in host memory, copied into the launch's arguments.
+int ocr_ink_mask(const uint8_t* page, uint8_t* mask, const float* taps, int h, int w, int c,
+                 void* stream) {
+  if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  MaskArgs p;
+  for (int k = 0; k < kMaskTaps; ++k) p.k[k] = taps[k];
+  p.c = c;
+  p.q8 = w / 8 * 8;
+  p.q4 = p.q8 + 4 <= w ? p.q8 + 4 : p.q8;
+  const dim3 block(kMaskTile, kMaskThreads / kMaskTile);
+  const dim3 grid((w + kMaskTile - 1) / kMaskTile, (h + kMaskTile - 1) / kMaskTile);
+  ink_mask_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(page, mask, h, w, p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -5,15 +5,16 @@ of ocr_system_tpu/engine/classical_detector.py, its cv2 branch).
   dilation merges characters into word blobs -> connected components ->
   padded boxes -> size/density filtering
 
-All host work on the CPU: ``engine/host_image`` carries OpenCV's
-threshold, dilation and float resize bit for bit in numpy and scipy; the
-components come from the native op (``native/cc_label``), as in the JAX
-package. The deskew turn runs where ``device`` says (``detector.
-turn_pages``): the hybrid detector hands over the neural detector's
-device, so both passes turn on the card; a bare ``ClassicalDetector()``
-turns on the host. No trained weights: the deployment fallback when
-no DBNet checkpoint is available, and the classical half of the hybrid
-detector.
+Host work on the CPU: ``engine/host_image`` carries OpenCV's threshold,
+dilation and float resize bit for bit in numpy and scipy; the components
+come from the native op (``native/cc_label``), as in the JAX package. The
+deskew turn and the ink mask run where ``device`` says: on a CUDA device
+the rotate kernel turns the page (``detector.turn_pages``) and the ink-mask
+kernel (``kernels/ink_mask``) masks it, bit for bit the host versions. The
+hybrid detector hands over the neural detector's device, so on a card both
+passes use it; a bare ``ClassicalDetector()`` works on the host. No
+trained weights: the deployment fallback when no DBNet checkpoint is
+available, and the classical half of the hybrid detector.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ocr_system_tpu_torch.engine.host_image import (
     dilate,
     resize_linear,
 )
+from ocr_system_tpu_torch.kernels.ink_mask import ink_mask_pages
 from ocr_system_tpu_torch.native import cc_label
 from ocr_system_tpu_torch.ops.boxes import DetectedBox
 from ocr_system_tpu_torch.utils.profiler import count, span
@@ -47,7 +49,7 @@ class ClassicalDetector:
     def __init__(self, settings: Settings | None = None,
                  device: str | torch.device | None = None):
         self.settings = settings or get_settings()
-        self.device = device  # where the deskew turn runs; None: the host
+        self.device = device  # where the deskew turn and the mask run; None: the host
 
     def detect_batch(self, pages: list[np.ndarray]) -> list[DetResult]:
         return [self._detect_one(p) for p in pages]
@@ -63,7 +65,10 @@ class ClassicalDetector:
                     page = _rotate_host(page, est, self.device)
                 angle = est
         with span("classical.mask"):
-            mask = _ink_mask(page)
+            if self.device is not None and torch.device(self.device).type == "cuda":
+                mask = _ink_mask_on_card(page, self.device)
+            else:
+                mask = _ink_mask(page)
         # the glyph-merging kernel follows the page's char height:
         # inter-letter gaps scale with font size, not page width
         char_h = _estimate_char_height(mask)
@@ -85,6 +90,14 @@ def _ink_mask(page: np.ndarray) -> np.ndarray:
     """float64 luma truncated to u8, then the adaptive Gaussian threshold
     (block 31, C 15): 1 = ink."""
     return adaptive_threshold(_luma_f64(page).astype(np.uint8), "gaussian", 31, 15)
+
+
+def _ink_mask_on_card(page: np.ndarray, device: str | torch.device) -> np.ndarray:
+    """``_ink_mask`` by the ink-mask kernel: the page goes up as it lies
+    in memory (a channel-last view of planar storage in one copy, made
+    contiguous on the card), and its mask comes back."""
+    pixels = torch.from_numpy(page).to(device).contiguous()
+    return ink_mask_pages(pixels).cpu().numpy()
 
 
 def _estimate_char_height(mask: np.ndarray) -> float:

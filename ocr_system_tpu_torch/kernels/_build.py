@@ -43,6 +43,7 @@ _SIGNATURES = {
     "ocr_enhance": [_P, _I, _P, _I, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "ocr_crop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ocr_rotate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ocr_ink_mask": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -9,9 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ink_mask import tie_page
+
+from ocr_system_tpu_torch.core.config import Settings
+from ocr_system_tpu_torch.engine import classical_detector
+from ocr_system_tpu_torch.engine.classical_detector import ClassicalDetector
 from ocr_system_tpu_torch.engine.detector import turn_pages
 from ocr_system_tpu_torch.engine.host_image import rotate_cubic
-from ocr_system_tpu_torch.kernels import crop, enhance, rotate
+from ocr_system_tpu_torch.engine.hybrid_detector import HybridDetector
+from ocr_system_tpu_torch.kernels import crop, enhance, ink_mask, rotate
+from ocr_system_tpu_torch.utils import smoke
+from ocr_system_tpu_torch.utils.profiler import SPANS
 from ocr_system_tpu_torch.utils.smoke import bf16_agrees, bf16_disagreement
 
 torch.set_num_threads(1)
@@ -120,6 +128,72 @@ def test_turn_pages_launches_once_per_shape(cuda):
         assert np.array_equal(out, rotate_cubic(page, angle, fill=255))
 
 
+# the ink mask's pages: the 8 committed forms upright and turned, a page
+# of rounding ties, OpenCV's tail widths (0, 3, 4, 5, 7 mod 8) and pages
+# under the 31-pixel block
+INK_PAGES = ([f"form{k}" for k in range(8)] + [f"turned{k}" for k in range(8)]
+             + ["ties", "w64", "w67", "w68", "w69", "w71", "20x27", "5x3"])
+
+
+@pytest.fixture(scope="module")
+def ink_pages():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CPU runs the plain versions only")
+    forms = smoke.smoke_forms()[0]
+    angles = [float(a) for a in np.linspace(-3.5, 3.5, 8)]
+    # the rotate kernel is rotate_cubic bit for bit (above)
+    turned = rotate.rotate_pages(torch.from_numpy(forms).cuda(), angles).cpu().numpy()
+    pages = {f"form{k}": f for k, f in enumerate(forms)}
+    pages.update({f"turned{k}": t for k, t in enumerate(turned)})
+    pages["ties"] = tie_page(240, 328, seed=11)
+    pages.update({f"w{w}": tie_page(45, w, seed=w) for w in (64, 67, 68, 69, 71)})
+    pages["20x27"], pages["5x3"] = tie_page(20, 27, seed=47), tie_page(5, 3, seed=8)
+    return pages
+
+
+@pytest.mark.parametrize("name", INK_PAGES)
+def test_ink_mask_kernel_is_the_host_mask_bit_for_bit(cuda, ink_pages, name):
+    """One launch a page, its mask equal to the plain version's and to the
+    host ``_ink_mask``'s."""
+    page = ink_pages[name]
+    before = ink_mask.LAUNCHES.value
+    got = ink_mask.ink_mask_pages(torch.from_numpy(page).to(cuda)).cpu()
+    torch.cuda.synchronize()
+    assert ink_mask.LAUNCHES.value == before + 1
+    plain = ink_mask.ink_mask_pages_plain(torch.from_numpy(page))
+    assert torch.equal(got, plain), int((got != plain).sum())
+    assert np.array_equal(got.numpy(), classical_detector._ink_mask(page))
+
+
+def test_hybrid_classical_pass_on_the_card_is_the_hosts(cuda):
+    """The hybrid detector's classical pass on the card (the mask kernel,
+    the rotate kernel for its re-turns) finds the boxes, angles and pages
+    of a classical pass on the host, on the neural pass's pages of the 8
+    committed forms (one as a channel-last view of planar storage); every
+    page goes through the kernel once, and each ``classical.mask`` span
+    counts its card page beside its ``classical.skew`` span's page."""
+    s = Settings(**smoke.TRAINED, ocr_engine="hybrid")
+    hybrid = HybridDetector(s, device=cuda)
+    pages = [d.page for d in hybrid.neural.detect_batch(list(smoke.smoke_forms()[0]))]
+    pages[3] = np.ascontiguousarray(pages[3].transpose(2, 0, 1)).transpose(1, 2, 0)
+    before = ink_mask.LAUNCHES.value
+    SPANS.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = hybrid.classical.detect_batch(pages)
+    assert ink_mask.LAUNCHES.value == before + len(pages)
+    spans = list(SPANS.spans)
+    masks = [s.counts for s in spans if s.name == "classical.mask"]
+    skews = [s.counts["skew.pages"] for s in spans if s.name == "classical.skew"]
+    assert masks == [{"mask.card_pages": 1}] * len(pages)
+    assert skews == [1] * len(pages)
+    want = ClassicalDetector(s).detect_batch(pages)
+    for g, w in zip(got, want, strict=True):
+        assert g.skew_angle == w.skew_angle and np.array_equal(g.page, w.page)
+        assert len(g.boxes) == len(w.boxes) > 0
+        for a, b in zip(g.boxes, w.boxes):
+            assert np.array_equal(a.quad, b.quad) and a.score == b.score
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     means = torch.zeros(1, device=cuda)
     with pytest.raises(ValueError):
@@ -152,6 +226,14 @@ def test_wrappers_reject_bad_inputs(cuda):
         rotate.rotate_pages(page, [1.0, 2.0])
     with pytest.raises(ValueError):  # fill is a u8 value
         rotate.rotate_pages(page, [1.0], fill=256)
+    with pytest.raises(ValueError):  # the ink mask takes one (H, W, 3) u8 page
+        ink_mask.ink_mask_pages(page)
+    with pytest.raises(ValueError):
+        ink_mask.ink_mask_pages(page[0].float())
+    with pytest.raises(ValueError):
+        ink_mask.ink_mask_pages(page[0, ..., :2].contiguous())
+    with pytest.raises(ValueError):  # not contiguous
+        ink_mask.ink_mask_pages(page[0].transpose(0, 1))
 
 
 def test_the_decode_graph_steps_like_eager_decode(cuda):
